@@ -1,0 +1,433 @@
+// DXT1 (BC1) and DXT5 (BC3) encode and decode for Hopper (sm_90a).
+//
+// Four kernels, one thread per 4x4 block, integer arithmetic only. Each is
+// byte-exact with the plain PyTorch codec in texcomp_torch/codecs/dxt.py,
+// which follows the reference's dxtc_compressor.cc. The entry points at the
+// bottom have a plain C interface: pointers, ints and a stream, returning
+// cudaGetLastError() so the caller sees a refused launch.
+//
+// Tie-breaks are the reference's: the first pixel at the min/max
+// luminance, and strict '<' across palette entries 0..3 and alpha ramp
+// entries 0..7, both in scan order y*4+x.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kLutBytes = 256 * 8;
+
+__device__ __forceinline__ int ext5(int v) { return (v << 3) | (v >> 2); }
+__device__ __forceinline__ int ext6(int v) { return (v << 2) | (v >> 4); }
+
+// Blinn's exact 8-bit -> `bits` quantization (color_util.h:156-164).
+__device__ __forceinline__ int q8(int v, int bits) {
+  const int i = v * ((1 << bits) - 1) + 128;
+  return (i + (i >> 8)) >> 8;
+}
+
+__device__ __forceinline__ int pack565(int r5, int g6, int b5) {
+  return (r5 << 11) | (g6 << 5) | b5;
+}
+
+__device__ __forceinline__ int lum(int r, int g, int b) {
+  return 4 * r + 8 * g + b;
+}
+
+// CombineIntFast on non-negative operands: C '/' truncates, which equals
+// the reference's division, and a constant divisor is strength-reduced.
+template <int S0, int S1>
+__device__ __forceinline__ int combine(int v0, int v1) {
+  return (S0 * v0 + S1 * v1) / (S0 + S1);
+}
+
+__device__ __forceinline__ int diff_lum_err(int r0, int g0, int b0, int r1,
+                                            int g1, int b1) {
+  const int d = lum(abs(r0 - r1), abs(g0 - g1), abs(b0 - b1));
+  return d * d;
+}
+
+// GetBestDxtcConstColors (dxtc_const_color_table.cc:322-392). `lut` is the
+// 256x8 const-color table in shared memory: row = channel value, columns
+// [r/b 1/3 pair, r/b 1/2 pair, g 1/3 pair, g 1/2 pair].
+__device__ void best_const_colors(const uint8_t* lut, int tr, int tg, int tb,
+                                  bool always4, uint32_t& which,
+                                  uint32_t& c0, uint32_t& c1) {
+  const int sr = q8(tr, 5), sg = q8(tg, 6), sb = q8(tb, 5);
+  const uint32_t single = pack565(sr, sg, sb);
+  int min_err = diff_lum_err(tr, tg, tb, ext5(sr), ext6(sg), ext5(sb));
+  which = 0;
+  c0 = single;
+  c1 = single;
+  const uint8_t* lr = lut + 8 * tr;
+  const uint8_t* lg = lut + 8 * tg;
+  const uint8_t* lb = lut + 8 * tb;
+  if (!always4) {
+    const int h0r = lr[2], h0g = lg[6], h0b = lb[2];
+    const int h1r = lr[3], h1g = lg[7], h1b = lb[3];
+    const int err = diff_lum_err(
+        tr, tg, tb, combine<1, 1>(ext5(h0r), ext5(h1r)),
+        combine<1, 1>(ext6(h0g), ext6(h1g)),
+        combine<1, 1>(ext5(h0b), ext5(h1b)));
+    if (err < min_err) {
+      const uint32_t h0 = pack565(h0r, h0g, h0b);
+      const uint32_t h1 = pack565(h1r, h1g, h1b);
+      which = 2;  // halves need c0 < c1 (3-color decode)
+      c0 = min(h0, h1);
+      c1 = max(h0, h1);
+      min_err = err;
+    }
+  }
+  const int t0r = lr[0], t0g = lg[4], t0b = lb[0];
+  const int t1r = lr[1], t1g = lg[5], t1b = lb[1];
+  const int err = diff_lum_err(
+      tr, tg, tb, combine<2, 1>(ext5(t0r), ext5(t1r)),
+      combine<2, 1>(ext6(t0g), ext6(t1g)), combine<2, 1>(ext5(t0b), ext5(t1b)));
+  if (err < min_err) {
+    // Thirds need c0 > c1; otherwise flip and use the 2/3 point.
+    const uint32_t t0 = pack565(t0r, t0g, t0b);
+    const uint32_t t1 = pack565(t1r, t1g, t1b);
+    const bool gt = t0 > t1;
+    which = gt ? 2 : 3;
+    c0 = gt ? t0 : t1;
+    c1 = gt ? t1 : t0;
+  }
+}
+
+// EncodeDxt1Block (dxtc_compressor.cc:482-513) on a block whose channels
+// are already swapped for BGR. Returns the two little-endian words of the
+// 8-byte block: c0 | c1 << 16, then the four index rows.
+__device__ uint2 encode_color(const int (&r)[16], const int (&g)[16],
+                              const int (&b)[16], const uint8_t* lut,
+                              bool swap, bool always4) {
+  int l[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) l[i] = lum(r[i], g[i], b[i]);
+
+  int lo = l[0], hi = l[0];
+  int lor = r[0], log_ = g[0], lob = b[0];
+  int hir = r[0], hig = g[0], hib = b[0];
+#pragma unroll
+  for (int i = 1; i < 16; ++i) {
+    if (l[i] < lo) { lo = l[i]; lor = r[i]; log_ = g[i]; lob = b[i]; }
+    if (l[i] > hi) { hi = l[i]; hir = r[i]; hig = g[i]; hib = b[i]; }
+  }
+  const uint32_t lo16 = pack565(q8(lor, 5), q8(log_, 6), q8(lob, 5));
+  const uint32_t hi16 = pack565(q8(hir, 5), q8(hig, 6), q8(hib, 5));
+
+  uint32_t c0, c1, rows;
+  if (lo16 == hi16) {
+    // Constant-color path on base color 0, swapped back to source order
+    // for BGR: the reference swaps it twice (dxtc_compressor.cc:360).
+    uint32_t which;
+    best_const_colors(lut, swap ? lob : lor, log_, swap ? lor : lob, always4,
+                      which, c0, c1);
+    rows = which * 0x55555555u;
+  } else {
+    const bool flip = lo16 < hi16;
+    const int b0r = flip ? hir : lor, b0g = flip ? hig : log_,
+              b0b = flip ? hib : lob;
+    const int b1r = flip ? lor : hir, b1g = flip ? log_ : hig,
+              b1b = flip ? lob : hib;
+    c0 = max(lo16, hi16);
+    c1 = min(lo16, hi16);
+    const int p0 = lum(b0r, b0g, b0b);
+    const int p1 = lum(b1r, b1g, b1b);
+    const int p2 = lum(combine<2, 1>(b0r, b1r), combine<2, 1>(b0g, b1g),
+                       combine<2, 1>(b0b, b1b));
+    const int p3 = lum(combine<1, 2>(b0r, b1r), combine<1, 2>(b0g, b1g),
+                       combine<1, 2>(b0b, b1b));
+    rows = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      int d = p0 - l[i];
+      int best = d * d;
+      uint32_t code = 0;
+      d = p1 - l[i];
+      if (d * d < best) { best = d * d; code = 1; }
+      d = p2 - l[i];
+      if (d * d < best) { best = d * d; code = 2; }
+      d = p3 - l[i];
+      if (d * d < best) { code = 3; }
+      rows |= code << (2 * i);  // pixel (y, x) at bit 8y + 2x
+    }
+  }
+  return make_uint2(c0 | (c1 << 16), rows);
+}
+
+// ComputeBaseAlphas + ComputeAlphaBits (dxtc_compressor.cc:374-479).
+// Returns the first two little-endian words of the 16-byte DXT5 block.
+__device__ uint2 encode_alpha(const int (&a)[16], bool outside) {
+  if (outside) {
+    // has_one_pixel: both endpoints are pixel 0 and every code is 0.
+    return make_uint2(uint32_t(a[0]) | (uint32_t(a[0]) << 8), 0u);
+  }
+  int num_t = 0, num_o = 0, low = 255, high = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    num_t += a[i] == 0;
+    num_o += a[i] == 255;
+    if (a[i] > 0 && a[i] < 255) {
+      low = min(low, a[i]);
+      high = max(high, a[i]);
+    }
+  }
+  if (low > high) { low = 0; high = 255; }  // only 0s and 255s
+  const bool explicit_mode = num_t > 1 || num_o > 1;
+  const int a0 = explicit_mode ? low : (num_o > 0 ? 255 : high);
+  const int a1 = explicit_mode ? high : (num_t > 0 ? 0 : low);
+
+  int ramp[8];
+  ramp[0] = a0;
+  ramp[1] = a1;
+  if (a0 <= a1) {
+    ramp[2] = combine<4, 1>(a0, a1);
+    ramp[3] = combine<3, 2>(a0, a1);
+    ramp[4] = combine<2, 3>(a0, a1);
+    ramp[5] = combine<1, 4>(a0, a1);
+    ramp[6] = 0;
+    ramp[7] = 255;
+  } else {
+    ramp[2] = combine<6, 1>(a0, a1);
+    ramp[3] = combine<5, 2>(a0, a1);
+    ramp[4] = combine<4, 3>(a0, a1);
+    ramp[5] = combine<3, 4>(a0, a1);
+    ramp[6] = combine<2, 5>(a0, a1);
+    ramp[7] = combine<1, 6>(a0, a1);
+  }
+  uint32_t half0 = 0, half1 = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    int d = a[i] - ramp[0];
+    int best = d * d;
+    uint32_t code = 0;
+#pragma unroll
+    for (int k = 1; k < 8; ++k) {
+      d = a[i] - ramp[k];
+      if (d * d < best) { best = d * d; code = k; }
+    }
+    if (i < 8) half0 |= code << (3 * i);
+    else half1 |= code << (3 * (i - 8));
+  }
+  return make_uint2(uint32_t(a0) | (uint32_t(a1) << 8) | ((half0 & 0xFFFFu) << 16),
+                    (half0 >> 16) | (half1 << 8));
+}
+
+// Replaces texcomp/ops/dxt_pallas.py:_dxt1_kernel and :_dxt5_kernel, and
+// with them the TPU-side edge pad, u32 pack, block transposes and
+// words_to_blocks of dxtc_encode_padded_image.
+//
+// Reads an (h, w, channels) uint8 image as it arrives and writes
+// (nbr * nbc, 8 | 16) uint8 blocks. Pixels outside the valid extent
+// replicate the edge by clamped coordinates (Pixel4x4, pixel4x4.cc:44-53);
+// a block wholly outside in both dimensions is has_one_pixel
+// (pixel4x4.cc:56-58). The const-color table is copied into shared
+// memory: the threads of a warp index different rows, which the constant
+// cache would serialise.
+//
+// Bound on the H100: memory traffic. A 4096^2 RGB encode reads 48 MiB and
+// writes 8 MiB; the per-block work is a few hundred integer operations.
+// This first version is one thread per block with byte loads; coalesced
+// cooperative row loads through shared memory are left to later work.
+template <bool kDxt5>
+__global__ void __launch_bounds__(kThreads)
+encode_kernel(const uint8_t* __restrict__ img, int channels, int h, int w,
+              int nbr, int nbc, const uint8_t* __restrict__ lut_global,
+              uint8_t* __restrict__ out, bool swap, bool always4) {
+  __shared__ uint8_t lut[kLutBytes];
+  for (int i = threadIdx.x; i < kLutBytes; i += blockDim.x) lut[i] = lut_global[i];
+  __syncthreads();
+
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= (long long)nbr * nbc) return;
+  const int by = int(n / nbc), bx = int(n % nbc);
+  const long long stride = (long long)w * channels;
+
+  int r[16], g[16], b[16], a[16];
+#pragma unroll
+  for (int y = 0; y < 4; ++y) {
+    const uint8_t* row = img + min(4 * by + y, h - 1) * stride;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const uint8_t* p = row + min(4 * bx + x, w - 1) * channels;
+      const int i = 4 * y + x;
+      const int c0 = p[0], c2 = p[2];
+      r[i] = swap ? c2 : c0;
+      g[i] = p[1];
+      b[i] = swap ? c0 : c2;
+      if (kDxt5) a[i] = p[3];
+    }
+  }
+
+  if (kDxt5) {
+    const bool outside = 4 * by >= h && 4 * bx >= w;
+    const uint2 alpha = encode_alpha(a, outside);
+    const uint2 color = encode_color(r, g, b, lut, swap, true);
+    reinterpret_cast<uint4*>(out)[n] = make_uint4(alpha.x, alpha.y, color.x, color.y);
+  } else {
+    reinterpret_cast<uint2*>(out)[n] = encode_color(r, g, b, lut, swap, always4);
+  }
+}
+
+__device__ __forceinline__ uint32_t select4(uint32_t code, uint32_t v0,
+                                            uint32_t v1, uint32_t v2,
+                                            uint32_t v3) {
+  return code == 0 ? v0 : code == 1 ? v1 : code == 2 ? v2 : v3;
+}
+
+// DecodeColors (dxtc_compressor.cc:167-192): the 4-entry palette of
+// packed r | g << 8 | b << 16 pixels from the color word c0 | c1 << 16.
+// `swap` swaps the endpoint channels; interpolation is channelwise.
+__device__ void decode_palette(uint32_t cw, bool swap, bool always4,
+                               uint32_t (&pal)[4]) {
+  const int c0 = cw & 0xFFFF, c1 = cw >> 16;
+  int e0[3] = {ext5(c0 >> 11), ext6((c0 >> 5) & 63), ext5(c0 & 31)};
+  int e1[3] = {ext5(c1 >> 11), ext6((c1 >> 5) & 63), ext5(c1 & 31)};
+  if (swap) {
+    int t = e0[0]; e0[0] = e0[2]; e0[2] = t;
+    t = e1[0]; e1[0] = e1[2]; e1[2] = t;
+  }
+  const bool equal = c0 == c1;
+  const bool four = always4 || c0 > c1;
+  pal[0] = pal[1] = pal[2] = pal[3] = 0;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int v0 = e0[ch], v1 = e1[ch];
+    const int v2 = equal ? v1 : four ? combine<2, 1>(v0, v1) : combine<1, 1>(v0, v1);
+    const int v3 = equal ? v1 : four ? combine<1, 2>(v0, v1) : 0;
+    pal[0] |= uint32_t(v0) << (8 * ch);
+    pal[1] |= uint32_t(v1) << (8 * ch);
+    pal[2] |= uint32_t(v2) << (8 * ch);
+    pal[3] |= uint32_t(v3) << (8 * ch);
+  }
+}
+
+// Replaces texcomp/ops/dxt_pallas.py:_dxt1_decode_kernel and
+// :_dxt5_decode_kernel, and with them blocks_to_words and
+// _unblock_transpose_u32.
+//
+// Reads (nbr * nbc, 8 | 16) uint8 blocks and writes the
+// (4 * nbr, 4 * nbc, 4) uint8 image directly: RGBX with X = 0 for DXT1,
+// RGBA for DXT5 (DecodeAlphaValues, dxtc_compressor.cc:195-217). Each
+// thread writes its block's 4 rows as one 16-byte store each.
+//
+// Bound on the H100: memory traffic. A 4096^2 DXT1 decode reads 8 MiB and
+// writes 64 MiB. This first version is one thread per block; rows of
+// neighbouring threads are 16 bytes apart, so each store instruction of a
+// warp touches 512 contiguous bytes.
+template <bool kDxt5>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const uint8_t* __restrict__ blocks, int nbr, int nbc,
+              uint8_t* __restrict__ out, bool swap, bool always4) {
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= (long long)nbr * nbc) return;
+  const int by = int(n / nbc), bx = int(n % nbc);
+
+  uint32_t cw, iw;
+  uint32_t alpha[8];
+  uint32_t half0 = 0, half1 = 0;
+  if (kDxt5) {
+    const uint4 v = reinterpret_cast<const uint4*>(blocks)[n];
+    cw = v.z;
+    iw = v.w;
+    const int a0 = v.x & 255, a1 = (v.x >> 8) & 255;
+    half0 = ((v.x >> 16) & 0xFFFFu) | ((v.y & 255u) << 16);
+    half1 = (v.y >> 8) & 0xFFFFFFu;
+    alpha[0] = a0;
+    alpha[1] = a1;
+    if (a0 > a1) {
+      alpha[2] = combine<6, 1>(a0, a1);
+      alpha[3] = combine<5, 2>(a0, a1);
+      alpha[4] = combine<4, 3>(a0, a1);
+      alpha[5] = combine<3, 4>(a0, a1);
+      alpha[6] = combine<2, 5>(a0, a1);
+      alpha[7] = combine<1, 6>(a0, a1);
+    } else {
+      alpha[2] = combine<4, 1>(a0, a1);
+      alpha[3] = combine<3, 2>(a0, a1);
+      alpha[4] = combine<2, 3>(a0, a1);
+      alpha[5] = combine<1, 4>(a0, a1);
+      alpha[6] = 0;
+      alpha[7] = 255;
+    }
+  } else {
+    const uint2 v = reinterpret_cast<const uint2*>(blocks)[n];
+    cw = v.x;
+    iw = v.y;
+  }
+
+  uint32_t pal[4];
+  decode_palette(cw, swap, kDxt5 || always4, pal);
+
+  uint4* dst = reinterpret_cast<uint4*>(out);
+  const long long row_quads = nbc;  // one uint4 per block per image row
+#pragma unroll
+  for (int y = 0; y < 4; ++y) {
+    uint32_t px[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = 4 * y + x;
+      px[x] = select4((iw >> (2 * i)) & 3, pal[0], pal[1], pal[2], pal[3]);
+      if (kDxt5) {
+        const uint32_t code = ((i < 8 ? half0 : half1) >> (3 * (i & 7))) & 7;
+        uint32_t av = alpha[0];
+#pragma unroll
+        for (int k = 1; k < 8; ++k) av = code == uint32_t(k) ? alpha[k] : av;
+        px[x] |= av << 24;
+      }
+    }
+    dst[(4LL * by + y) * row_quads + bx] = make_uint4(px[0], px[1], px[2], px[3]);
+  }
+}
+
+inline int grid_for(long long n) { return int((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+int texcomp_dxt1_encode(const void* img, int channels, int h, int w, int nbr,
+                        int nbc, const void* lut, void* out, int swap,
+                        int always4, void* stream) {
+  encode_kernel<false><<<grid_for((long long)nbr * nbc), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(img), channels, h, w, nbr, nbc,
+      static_cast<const uint8_t*>(lut), static_cast<uint8_t*>(out), swap != 0,
+      always4 != 0);
+  return int(cudaGetLastError());
+}
+
+int texcomp_dxt5_encode(const void* img, int h, int w, int nbr, int nbc,
+                        const void* lut, void* out, int swap, void* stream) {
+  encode_kernel<true><<<grid_for((long long)nbr * nbc), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(img), 4, h, w, nbr, nbc,
+      static_cast<const uint8_t*>(lut), static_cast<uint8_t*>(out), swap != 0,
+      true);
+  return int(cudaGetLastError());
+}
+
+int texcomp_dxt1_decode(const void* blocks, int nbr, int nbc, void* out,
+                        int swap, int always4, void* stream) {
+  decode_kernel<false><<<grid_for((long long)nbr * nbc), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blocks), nbr, nbc, static_cast<uint8_t*>(out),
+      swap != 0, always4 != 0);
+  return int(cudaGetLastError());
+}
+
+int texcomp_dxt5_decode(const void* blocks, int nbr, int nbc, void* out,
+                        int swap, void* stream) {
+  decode_kernel<true><<<grid_for((long long)nbr * nbc), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blocks), nbr, nbc, static_cast<uint8_t*>(out),
+      swap != 0, true);
+  return int(cudaGetLastError());
+}
+
+const char* texcomp_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

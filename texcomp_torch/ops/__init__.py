@@ -1,0 +1,27 @@
+"""Image-level encode and decode ops.
+
+Each op maps an (H, W, C) uint8 image tensor (H, W multiples of 4) to
+packed blocks, or blocks back to an image, on the tensor's own device:
+the CUDA kernels for a CUDA tensor, their plain PyTorch twins for a CPU
+tensor (see ``dxt_cuda``). The decode result is an (H, W, 4) image on
+every device.
+"""
+
+from __future__ import annotations
+
+from texcomp_torch.ops import dxt_cuda
+
+
+def dxt1_encode_image_op(image):
+    """(H, W, 3) uint8 -> (H/4*W/4, 8) uint8 DXT1 blocks."""
+    return dxt_cuda.dxt1_encode_image(image)
+
+
+def dxt5_encode_image_op(image):
+    """(H, W, 4) uint8 -> (H/4*W/4, 16) uint8 DXT5 blocks."""
+    return dxt_cuda.dxt5_encode_image(image)
+
+
+def dxt1_decode_image_op(data, height: int, width: int):
+    """(N, 8) uint8 DXT1 blocks -> (H, W, 4) uint8 RGBX image."""
+    return dxt_cuda.dxt1_decode_image(data, height=height, width=width)
