@@ -201,6 +201,53 @@ def test_cuda_device_without_cuda_raises(rng):
         comp.compress(texcomp_torch.Format.RGB, 8, 8, 0, _buffer(rng, 8, 8, 3, 0), ci)
 
 
+def test_default_device_is_cuda(rng):
+    """DxtcCompressor() runs on the card unless the caller asks for the CPU:
+    where there is no CUDA device its first operation raises, and it never
+    returns bytes made on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py covers it")
+    comp = texcomp_torch.DxtcCompressor()
+    ci = texcomp_torch.CompressedImage()
+    with pytest.raises((AssertionError, RuntimeError)):
+        comp.compress(texcomp_torch.Format.RGB, 8, 8, 0, _buffer(rng, 8, 8, 3, 0), ci)
+    assert ci.get_data_size() == 0 or not ci.get_data().any()
+
+
+@pytest.mark.parametrize("name", ["dxt.cu", "shared.cuh", "tables.h"])
+def test_library_hash_covers_every_source(tmp_path, name):
+    """Touching any source under csrc/, a header included, names another
+    library, so a stale build is never loaded."""
+    import shutil
+
+    from texcomp_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    (csrc / "shared.cuh").write_text("// shared device helpers\n")
+    (csrc / "tables.h").write_text("// tables\n")
+    before = _build.library_path(csrc)
+    assert _build.library_path(csrc) == before
+    with open(csrc / name, "a") as f:
+        f.write("// touched\n")
+    touched = _build.library_path(csrc)
+    assert touched != before
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build.library_path(csrc) == touched
+
+
+def test_signatures_name_every_entry_point():
+    """Every C entry point in csrc/*.cu has its argtypes in SIGNATURES."""
+    import re
+
+    from texcomp_torch.ops import _build
+
+    entries = set()
+    for src in _build.CSRC_DIR.glob("*.cu"):
+        entries |= set(re.findall(r"^int (texcomp_\w+)\(", src.read_text(), re.M))
+    assert entries == set(_build.SIGNATURES)
+
+
 def test_quality_high_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         texcomp_torch.DxtcCompressor("high", device="cpu")

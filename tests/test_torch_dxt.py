@@ -16,7 +16,7 @@ from texcomp.blocks import full_outside_mask
 import texcomp.ops as jops
 import texcomp_torch.ops as tops
 from texcomp_torch.codecs import dxt as tdxt
-from texcomp_torch.ops import dxt_cuda
+from texcomp_torch.ops import _launch, dxt_cuda
 
 H, W = 16, 24  # image ops: 24 blocks, one Pallas grid step
 
@@ -212,16 +212,18 @@ def test_ops_module(rng):
 
 
 @pytest.mark.parametrize("name", ["dxt1_encode", "dxt5_encode", "dxt1_decode",
-                                  "dxt5_decode"])
+                                  "dxt5_decode", "dxtc_downsample"])
 def test_kernel_wrapper_refuses_cpu_tensor(name):
     """A kernel wrapper launches on a CUDA tensor or raises; it never runs
     the plain version instead, and counts no launch."""
-    before = dict(dxt_cuda.LAUNCHES)
+    before = dict(_launch.LAUNCHES)
     if name.endswith("encode"):
         args = (torch.zeros((8, 8, 4), dtype=torch.uint8), 8, 8)
+    elif name == "dxtc_downsample":
+        args = (torch.zeros((4, 8), dtype=torch.uint8), 2, 2, True)
     else:
         args = (torch.zeros((4, 8 if name == "dxt1_decode" else 16),
                             dtype=torch.uint8), 8, 8)
     with pytest.raises(ValueError, match="CUDA tensor"):
         getattr(dxt_cuda, f"{name}_cuda")(*args)
-    assert dxt_cuda.LAUNCHES == before
+    assert _launch.LAUNCHES == before

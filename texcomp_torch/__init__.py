@@ -10,12 +10,18 @@ bytes for the same input. It imports ``torch`` and never ``jax``.
     (``csrc/``, built with nvcc at first use) beside their plain twins
   * ``texcomp_torch.api``    the reference-compatible Compressor API
 
-This first slice covers DXT1/DXT5 in reference quality (``DxtcCompressor``).
+It covers, in reference quality, DXT1/DXT5 (``DxtcCompressor``), ETC1 in
+its four strategies (``EtcCompressor``), mip chains of both
+(``downsample_chain``) and the DXT1 -> ETC1 transcoder
+(``transcode_dxt1_to_etc1``). Every entry point runs on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from texcomp_torch.api.compressor import Compressor
 from texcomp_torch.api.container import CompressedImage, Format, Metadata
 from texcomp_torch.api.dxtc import DxtcCompressor
+from texcomp_torch.api.etc import CompressionStrategy, EtcCompressor
+from texcomp_torch.api.transcode import transcode_dxt1_to_etc1
 
 __all__ = [
     "CompressedImage",
@@ -23,4 +29,7 @@ __all__ = [
     "Metadata",
     "Compressor",
     "DxtcCompressor",
+    "EtcCompressor",
+    "CompressionStrategy",
+    "transcode_dxt1_to_etc1",
 ]

@@ -4,7 +4,7 @@ Public behavior mirrors image_compression/public/dxtc_compressor.h:52-83 and
 the dispatch logic of internal/dxtc_compressor.cc:704-855: 3-component
 formats use DXT1 (8-byte blocks), 4-component formats DXT5 (16-byte blocks).
 
-Every encode and decode runs through the image ops of
+Every encode, decode and fused downsample runs through the image ops of
 ``texcomp_torch.ops.dxt_cuda`` on the compressor's device: the CUDA
 kernels on a CUDA device, their plain PyTorch twins on the CPU.
 """
@@ -37,14 +37,15 @@ class DxtcCompressor(Compressor):
     Args:
       quality: only "reference" is ported; "high" raises
         NotImplementedError.
-      device: the torch device that encodes and decodes, e.g. "cuda" or
-        "cpu". Nothing falls back to another device: a CUDA device on a
-        machine without one raises at the first operation.
+      device: the torch device that encodes and decodes; the card unless
+        the caller passes "cpu". Nothing falls back to another device: a
+        CUDA device on a machine without one raises at the first
+        operation.
     """
 
     name = "dxtc"
 
-    def __init__(self, quality: str = "reference", *, device):
+    def __init__(self, quality: str = "reference", *, device="cuda"):
         if quality == "high":
             raise NotImplementedError(
                 'quality="high" is not ported yet; see ROADMAP.md Queue 2 '
@@ -74,6 +75,15 @@ class DxtcCompressor(Compressor):
 
         def fn(data, height, width):
             return decode(data, height=height, width=width, swap=swap)
+
+        return fn
+
+    def _downsample_fn(self, fmt: Format):
+        is_dxt1 = self._is_dxt1(fmt)
+
+        def fn(data, nby, nbx):
+            return dxt_cuda.dxtc_downsample_encode(data, nby=nby, nbx=nbx,
+                                                   is_dxt1=is_dxt1)
 
         return fn
 
@@ -135,7 +145,24 @@ class DxtcCompressor(Compressor):
         # (compressor4x4_helper.h:602-607).
         return h4.downsample(
             self._encode_image_fn(fmt, False), self._decode_image_fn(fmt, False),
-            image, downsampled_image, self._block_size(fmt), self._device)
+            self._downsample_fn(fmt), image, downsampled_image,
+            self._block_size(fmt), self._device)
+
+    def downsample_chain(self, image, levels: int | None = None) -> list:
+        """The whole mip chain in one call: [level 1, level 2, ...], each
+        byte-equal to repeated :meth:`downsample` calls. The levels with
+        even block counts run as one fused kernel each, chained on the
+        device; the tail runs level by level. Swapped formats go level by
+        level all the way, as texcomp's chain does (the fused_ok guard of
+        texcomp/api/dxtc.py)."""
+        if not self.is_valid_compressed_image(image):
+            return []
+        fmt = image.get_metadata().format
+        return h4.downsample_chain(
+            self, image, levels, block_size=self._block_size(fmt),
+            codec="dxt1" if self._is_dxt1(fmt) else "dxt5",
+            device=self._device,
+            fused_ok=not needs_red_and_blue_swapped(fmt))
 
     def pad(self, image, padded_height, padded_width, padded_image) -> bool:
         if not self.is_valid_compressed_image(image) or padded_image is None:

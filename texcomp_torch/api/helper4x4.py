@@ -6,12 +6,14 @@ device call on a tensor on the compressor's device, plus host-side
 block-grid bookkeeping (numpy byte ops for pad/copy/solid, which are pure
 memcpy shuffles in the reference too).
 
-Codecs plug in through two callables:
+Codecs plug in through three callables:
 
   encode_image_fn(image, grid_height, grid_width) -> (N, block_size) uint8
       image: (h, w, C) uint8 tensor, channels in the format's own order
   decode_image_fn(data, height, width) -> (height, width, 4) uint8
       data: (N, block_size) uint8 tensor; height, width span the grid
+  downsample_fn(data, nby, nbx) -> (nby * nbx / 4, block_size) uint8
+      one fused mip level of an (nby, nbx) block grid, both even
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ from texcomp_torch.api.container import (
     num_format_components,
 )
 from texcomp_torch.blocks import num_blocks
+from texcomp_torch.ops.mipmap import mipmap_chain, num_chain_levels
 
 EncodeImageFn = Callable[[torch.Tensor, int, int], torch.Tensor]
 DecodeImageFn = Callable[[torch.Tensor, int, int], torch.Tensor]
+DownsampleFn = Callable[[torch.Tensor, int, int], torch.Tensor]
 
 
 def setup_compressed_image(
@@ -63,6 +67,61 @@ def setup_compressed_image(
             return False
         image.set_metadata(metadata)
     return True
+
+
+def downsample_chain_tail(compressor, cur: CompressedImage,
+                          results: list, levels: int | None) -> list:
+    """Extend ``results`` with repeated compressor.downsample() calls until
+    ``levels`` are collected, downsample fails, or a 1x1 level is reached
+    (a 1x1 image downsamples to itself forever)."""
+    while levels is None or len(results) < levels:
+        cm = cur.get_metadata()
+        if max(cm.uncompressed_height, cm.uncompressed_width) <= 1:
+            break
+        nxt = CompressedImage()
+        if not compressor.downsample(cur, nxt):
+            break
+        results.append(nxt)
+        cur = nxt
+    return results
+
+
+def downsample_chain(compressor, image: CompressedImage, levels: int | None,
+                     *, block_size: int, codec: str, device: torch.device,
+                     strategy: int = 2, fused_ok: bool = True) -> list:
+    """The mip chain of ``image``, byte-equal to repeated downsample calls:
+    the prefix of levels with even block counts as one fused op per level
+    on ``device`` (ops/mipmap.py), chained through the payload with no
+    host copy between levels, then the rest level by level."""
+    if not compressor.is_valid_compressed_image(image):
+        return []
+    md = image.get_metadata()
+    h, w = md.uncompressed_height, md.uncompressed_width
+    results: list[CompressedImage] = []
+
+    fused = 0
+    if fused_ok and h % 4 == 0 and w % 4 == 0:
+        fused = num_chain_levels(h, w)
+        if levels is not None:
+            fused = min(fused, levels)
+    if fused > 0:
+        data = _payload_blocks(image, block_size, num_blocks(h),
+                               num_blocks(w), device)
+        payloads = mipmap_chain(data, height=h, width=w, codec=codec,
+                                levels=fused, strategy=strategy)
+        lh, lw = h, w
+        for p in payloads:
+            lh //= 2
+            lw //= 2
+            ci = CompressedImage()
+            if not setup_compressed_image(
+                    ci, compressor.name, block_size, md.format, lh, lw, 0):
+                return results
+            ci.get_mutable_data()[:] = p.cpu().numpy().reshape(-1)
+            results.append(ci)
+
+    return downsample_chain_tail(
+        compressor, results[-1] if results else image, results, levels)
 
 
 def buffer_to_image_array(
@@ -206,6 +265,7 @@ def decompress(
 def downsample(
     encode_image_fn: EncodeImageFn,
     decode_image_fn: DecodeImageFn,
+    downsample_fn: DownsampleFn,
     image: CompressedImage,
     downsampled_image: CompressedImage,
     block_size: int,
@@ -213,11 +273,12 @@ def downsample(
 ) -> bool:
     """Compressor4x4Helper::Downsample (compressor4x4_helper.h:264-391).
 
-    Decode the block grid to an image, take the 2x2 truncating average,
-    tile where a dimension has a single block (the reference stores each
-    downsampled 2x2 at two positions, :357-379 and :618-633), then
-    re-encode the half-size grid. The callables must not swap red and
-    blue: the reference decodes and re-encodes swap-free here (:602-607).
+    A grid of more than one block in each direction takes one fused
+    downsample call. A grid of a single block row or column is decoded to
+    an image, 2x2-averaged, tiled (the reference stores each downsampled
+    2x2 at two positions, :357-379 and :618-633) and re-encoded. The
+    callables must not swap red and blue: the reference decodes and
+    re-encodes swap-free here (:602-607).
     """
     md = image.get_metadata()
     nbr = num_blocks(md.uncompressed_height)
@@ -236,6 +297,11 @@ def downsample(
         return False
 
     data = _payload_blocks(image, block_size, nbr, nbc, device)
+    if nbr > 1 and nbc > 1:
+        encoded = downsample_fn(data, nbr, nbc)
+        downsampled_image.get_mutable_data()[:] = encoded.cpu().numpy().reshape(-1)
+        return True
+
     c = num_format_components(md.format)
     img = decode_image_fn(data, 4 * nbr, 4 * nbc)[:, :, :c].to(torch.int32)
 

@@ -7,6 +7,8 @@ the generator algorithm documented in the reference
 exhaustive search finds the endpoint pair whose interpolated value best
 matches value/255. Ties break toward the lexicographically-first (i, j),
 matching the strict `err < minErr` update rule.
+
+The ETC1 codebook and heuristic thresholds are the reference's tables.
 """
 
 from __future__ import annotations
@@ -43,3 +45,27 @@ def _build_dxtc_const_color_table() -> np.ndarray:
 
 #: 256x8 uint8: optimal 5/6-bit endpoint pairs for constant-color DXT blocks.
 DXTC_CONST_COLOR_TABLE: np.ndarray = _build_dxtc_const_color_table()
+
+#: ETC1 modifier codebook, 8 codewords x 4 pixel indices, from the
+#: OES_compressed_ETC1_RGB8_texture spec (etc_compressor.cc:101-110). Each
+#: row is [a, b, -a, -b].
+ETC1_CODEBOOK: np.ndarray = np.array(
+    [
+        [2, 8, -2, -8],
+        [5, 17, -5, -17],
+        [9, 29, -9, -29],
+        [13, 42, -13, -42],
+        [18, 60, -18, -60],
+        [24, 80, -24, -80],
+        [33, 106, -33, -106],
+        [47, 183, -47, -183],
+    ],
+    dtype=np.int32,
+)
+
+#: Thresholds mapping the max absolute deviation to a codeword for the ETC
+#: heuristic strategy (etc_compressor.cc:435-451): the codeword is the
+#: number of thresholds the deviation exceeds.
+ETC1_HEURISTIC_THRESHOLDS: np.ndarray = np.array(
+    [12, 23, 35, 51, 70, 93, 144], dtype=np.int32
+)

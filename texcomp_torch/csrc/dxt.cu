@@ -1,8 +1,10 @@
-// DXT1 (BC1) and DXT5 (BC3) encode and decode for Hopper (sm_90a).
+// DXT1 (BC1) and DXT5 (BC3) encode, decode and one fused mip level for
+// Hopper (sm_90a).
 //
-// Four kernels, one thread per 4x4 block, integer arithmetic only. Each is
-// byte-exact with the plain PyTorch codec in texcomp_torch/codecs/dxt.py,
-// which follows the reference's dxtc_compressor.cc. The entry points at the
+// Three kernels (each for DXT1 and DXT5), one thread per 4x4 block,
+// integer arithmetic only. Each is byte-exact with the plain PyTorch codec
+// in texcomp_torch/codecs/dxt.py, which follows the reference's
+// dxtc_compressor.cc. The entry points at the
 // bottom have a plain C interface: pointers, ints and a stream, returning
 // cudaGetLastError() so the caller sees a refused launch.
 //
@@ -303,6 +305,47 @@ __device__ void decode_palette(uint32_t cw, bool swap, bool always4,
   }
 }
 
+// DecodeAlphaValues (dxtc_compressor.cc:195-217) of the DXT5 block whose
+// first two little-endian words are w0 and w1: the 8-entry ramp, and the
+// 48-bit code field split into two 24-bit halves (pixels 0-7 and 8-15).
+__device__ __forceinline__ void decode_alpha(uint32_t w0, uint32_t w1,
+                                             uint32_t (&alpha)[8],
+                                             uint32_t& half0,
+                                             uint32_t& half1) {
+  const int a0 = w0 & 255, a1 = (w0 >> 8) & 255;
+  half0 = ((w0 >> 16) & 0xFFFFu) | ((w1 & 255u) << 16);
+  half1 = (w1 >> 8) & 0xFFFFFFu;
+  alpha[0] = a0;
+  alpha[1] = a1;
+  if (a0 > a1) {
+    alpha[2] = combine<6, 1>(a0, a1);
+    alpha[3] = combine<5, 2>(a0, a1);
+    alpha[4] = combine<4, 3>(a0, a1);
+    alpha[5] = combine<3, 4>(a0, a1);
+    alpha[6] = combine<2, 5>(a0, a1);
+    alpha[7] = combine<1, 6>(a0, a1);
+  } else {
+    alpha[2] = combine<4, 1>(a0, a1);
+    alpha[3] = combine<3, 2>(a0, a1);
+    alpha[4] = combine<2, 3>(a0, a1);
+    alpha[5] = combine<1, 4>(a0, a1);
+    alpha[6] = 0;
+    alpha[7] = 255;
+  }
+}
+
+// The alpha of pixel i (scan order y*4+x): a select chain over the ramp,
+// not an indexed register array.
+__device__ __forceinline__ uint32_t alpha_at(int i, uint32_t half0,
+                                             uint32_t half1,
+                                             const uint32_t (&alpha)[8]) {
+  const uint32_t code = ((i < 8 ? half0 : half1) >> (3 * (i & 7))) & 7;
+  uint32_t av = alpha[0];
+#pragma unroll
+  for (int k = 1; k < 8; ++k) av = code == uint32_t(k) ? alpha[k] : av;
+  return av;
+}
+
 // Replaces texcomp/ops/dxt_pallas.py:_dxt1_decode_kernel and
 // :_dxt5_decode_kernel, and with them blocks_to_words and
 // _unblock_transpose_u32.
@@ -331,26 +374,7 @@ decode_kernel(const uint8_t* __restrict__ blocks, int nbr, int nbc,
     const uint4 v = reinterpret_cast<const uint4*>(blocks)[n];
     cw = v.z;
     iw = v.w;
-    const int a0 = v.x & 255, a1 = (v.x >> 8) & 255;
-    half0 = ((v.x >> 16) & 0xFFFFu) | ((v.y & 255u) << 16);
-    half1 = (v.y >> 8) & 0xFFFFFFu;
-    alpha[0] = a0;
-    alpha[1] = a1;
-    if (a0 > a1) {
-      alpha[2] = combine<6, 1>(a0, a1);
-      alpha[3] = combine<5, 2>(a0, a1);
-      alpha[4] = combine<4, 3>(a0, a1);
-      alpha[5] = combine<3, 4>(a0, a1);
-      alpha[6] = combine<2, 5>(a0, a1);
-      alpha[7] = combine<1, 6>(a0, a1);
-    } else {
-      alpha[2] = combine<4, 1>(a0, a1);
-      alpha[3] = combine<3, 2>(a0, a1);
-      alpha[4] = combine<2, 3>(a0, a1);
-      alpha[5] = combine<1, 4>(a0, a1);
-      alpha[6] = 0;
-      alpha[7] = 255;
-    }
+    decode_alpha(v.x, v.y, alpha, half0, half1);
   } else {
     const uint2 v = reinterpret_cast<const uint2*>(blocks)[n];
     cw = v.x;
@@ -369,15 +393,94 @@ decode_kernel(const uint8_t* __restrict__ blocks, int nbr, int nbc,
     for (int x = 0; x < 4; ++x) {
       const int i = 4 * y + x;
       px[x] = select4((iw >> (2 * i)) & 3, pal[0], pal[1], pal[2], pal[3]);
-      if (kDxt5) {
-        const uint32_t code = ((i < 8 ? half0 : half1) >> (3 * (i & 7))) & 7;
-        uint32_t av = alpha[0];
-#pragma unroll
-        for (int k = 1; k < 8; ++k) av = code == uint32_t(k) ? alpha[k] : av;
-        px[x] |= av << 24;
-      }
+      if (kDxt5) px[x] |= alpha_at(i, half0, half1, alpha) << 24;
     }
     dst[(4LL * by + y) * row_quads + bx] = make_uint4(px[0], px[1], px[2], px[3]);
+  }
+}
+
+// Replaces texcomp/ops/dxt_pallas.py:_dxt1_down_kernel and
+// :_dxt5_down_kernel, and with them the grouping transpose of
+// dxtc_downsample_encode_words and the bf16 one-hot matmul that averaged
+// and regrouped the pixels (_avg_regroup, _p4_matrix).
+//
+// One fused mip level: destination block (dy, dx) of the (nby/2, nbx/2)
+// grid reads its four source blocks at rows 2dy + {0, 1} and columns
+// 2dx + {0, 1} straight from the (nby * nbx, 8 | 16) payload, decodes
+// each (swap-free; DXT1 colors by the c0 > c1 rule, DXT5 colors in four-
+// color mode and the alpha ramp) and adds its 16 pixels into the 2x2 sums
+// of its destination quadrant: 16 x 3 (4) sums in registers, never 64
+// decoded pixels. `>> 2` on the non-negative sums is the truncating
+// average (ComputeAveragePixel2x2). The block is then encoded as the
+// Downsample path encodes it (compressor4x4_helper.h:602-607): DXT1 with
+// always4 = false, DXT5 with its alpha half (not has_one_pixel) and an
+// always-4-color color half. Equal to decode -> 2x2 average -> encode.
+//
+// Bound on the H100: integer issue, not memory. At a 4096^2 source it reads
+// 8 MiB (DXT1) or 16 MiB (DXT5) and writes a quarter of that, 3 or 6 us at
+// 3.35 TB/s, but each destination block does four decodes and one encode,
+// about 1,550 (DXT1) or 3,440 (DXT5) integer operations as chip_smoke.py
+// counts them: 6 or 13.5 us at the CUDA cores' peak.
+template <bool kDxt5>
+__global__ void __launch_bounds__(kThreads)
+downsample_kernel(const uint8_t* __restrict__ src, int nby, int nbx,
+                  const uint8_t* __restrict__ lut_global,
+                  uint8_t* __restrict__ out) {
+  __shared__ uint8_t lut[kLutBytes];
+  for (int i = threadIdx.x; i < kLutBytes; i += blockDim.x) lut[i] = lut_global[i];
+  __syncthreads();
+
+  const int dnbx = nbx / 2;
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= (long long)(nby / 2) * dnbx) return;
+  const int dy = int(n / dnbx), dx = int(n % dnbx);
+
+  int r[16] = {}, g[16] = {}, b[16] = {}, a[16] = {};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int sy = s >> 1, sx = s & 1;
+    const long long i = (2LL * dy + sy) * nbx + 2 * dx + sx;
+    uint32_t cw, iw;
+    uint32_t alpha[8];
+    uint32_t half0 = 0, half1 = 0;
+    if (kDxt5) {
+      const uint4 v = reinterpret_cast<const uint4*>(src)[i];
+      cw = v.z;
+      iw = v.w;
+      decode_alpha(v.x, v.y, alpha, half0, half1);
+    } else {
+      const uint2 v = reinterpret_cast<const uint2*>(src)[i];
+      cw = v.x;
+      iw = v.y;
+    }
+    uint32_t pal[4];
+    decode_palette(cw, false, kDxt5, pal);
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      // Source pixel (y, x) lands in destination pixel
+      // (2 sy + y / 2, 2 sx + x / 2).
+      const int d = (2 * sy + (p >> 3)) * 4 + 2 * sx + ((p & 3) >> 1);
+      const uint32_t c = select4((iw >> (2 * p)) & 3, pal[0], pal[1], pal[2],
+                                 pal[3]);
+      r[d] += c & 255;
+      g[d] += (c >> 8) & 255;
+      b[d] += (c >> 16) & 255;
+      if (kDxt5) a[d] += alpha_at(p, half0, half1, alpha);
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 16; ++d) {
+    r[d] >>= 2;
+    g[d] >>= 2;
+    b[d] >>= 2;
+    a[d] >>= 2;
+  }
+  if (kDxt5) {
+    const uint2 alpha = encode_alpha(a, false);
+    const uint2 color = encode_color(r, g, b, lut, false, true);
+    reinterpret_cast<uint4*>(out)[n] = make_uint4(alpha.x, alpha.y, color.x, color.y);
+  } else {
+    reinterpret_cast<uint2*>(out)[n] = encode_color(r, g, b, lut, false, false);
   }
 }
 
@@ -423,6 +526,24 @@ int texcomp_dxt5_decode(const void* blocks, int nbr, int nbc, void* out,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(blocks), nbr, nbc, static_cast<uint8_t*>(out),
       swap != 0, true);
+  return int(cudaGetLastError());
+}
+
+int texcomp_dxt1_downsample(const void* src, int nby, int nbx, const void* lut,
+                            void* out, void* stream) {
+  downsample_kernel<false><<<grid_for((long long)(nby / 2) * (nbx / 2)),
+                             kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), nby, nbx,
+      static_cast<const uint8_t*>(lut), static_cast<uint8_t*>(out));
+  return int(cudaGetLastError());
+}
+
+int texcomp_dxt5_downsample(const void* src, int nby, int nbx, const void* lut,
+                            void* out, void* stream) {
+  downsample_kernel<true><<<grid_for((long long)(nby / 2) * (nbx / 2)),
+                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(src), nby, nbx,
+      static_cast<const uint8_t*>(lut), static_cast<uint8_t*>(out));
   return int(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Image-level encode and decode ops.
 
 Each op maps an (H, W, C) uint8 image tensor (H, W multiples of 4) to
-packed blocks, or blocks back to an image, on the tensor's own device:
-the CUDA kernels for a CUDA tensor, their plain PyTorch twins for a CPU
-tensor (see ``dxt_cuda``). The decode result is an (H, W, 4) image on
-every device.
+packed blocks, blocks back to an image, or one mip level's blocks to the
+next level's, on the tensor's own device: the CUDA kernels for a CUDA
+tensor, their plain PyTorch twins for a CPU tensor (``dxt_cuda`` for
+DXT1/DXT5, ``etc_cuda`` for ETC1 and the transcoder, ``mipmap`` for
+chains). The decode result is an (H, W, 4) image on every device.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Build the CUDA sources under ``texcomp_torch/csrc`` and load them.
 
-At first use ``nvcc`` compiles every ``csrc/*.cu`` file into one shared
-library with a plain C interface, which is then loaded with ``ctypes``. The
-library goes into ``texcomp_torch/_build/`` under a name that carries a
-hash of the sources and the flags, so a stale build is never loaded.
+At first use ``nvcc`` compiles each ``csrc/*.cu`` file into an object, all
+of them at once in parallel, and links the objects into one shared library
+with a plain C interface, which is then loaded with ``ctypes``. The library
+goes into ``texcomp_torch/_build/`` under a name that carries a hash of
+every source file under ``csrc/`` (headers included) and of the flags, so
+a stale build is never loaded.
 """
 
 from __future__ import annotations
@@ -20,29 +22,42 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-shared",)
+#: Files whose bytes go into the library's hash.
+SOURCE_SUFFIXES = (".cu", ".cuh", ".h")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: argtypes of each C entry point in csrc/dxt.cu; each returns a cudaError_t.
+#: argtypes of each C entry point in csrc/*.cu; each returns a cudaError_t.
 SIGNATURES = {
+    # csrc/dxt.cu
     "texcomp_dxt1_encode": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P],
     "texcomp_dxt5_encode": [_P, _I, _I, _I, _I, _P, _P, _I, _P],
     "texcomp_dxt1_decode": [_P, _I, _I, _P, _I, _I, _P],
     "texcomp_dxt5_decode": [_P, _I, _I, _P, _I, _P],
+    "texcomp_dxt1_downsample": [_P, _I, _I, _P, _P, _P],
+    "texcomp_dxt5_downsample": [_P, _I, _I, _P, _P, _P],
+    # csrc/etc.cu
+    "texcomp_etc1_encode": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
+    "texcomp_etc1_decode": [_P, _I, _I, _P, _P],
+    "texcomp_etc1_downsample": [_P, _I, _I, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu"))
+def _sources(csrc_dir: Path = CSRC_DIR) -> list[Path]:
+    """Every file the build depends on: the .cu files and their headers."""
+    return sorted(p for p in csrc_dir.iterdir()
+                  if p.is_file() and p.suffix in SOURCE_SUFFIXES)
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+def library_path(csrc_dir: Path = CSRC_DIR) -> Path:
+    """Where the library for the sources in ``csrc_dir`` and the flags
+    lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in _sources(csrc_dir):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtexcomp_kernels_{h.hexdigest()[:16]}.so"
@@ -59,21 +74,34 @@ def _nvcc() -> str:
     return found
 
 
-def build(path: Path) -> None:
-    """Compile the sources into ``path`` (written atomically)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def build(path: Path) -> None:
+    """Compile the sources into ``path`` (written atomically): one nvcc per
+    .cu file, all started together, then one link."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [Path(tmp) / f"{s.stem}.o" for s in units]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(s),
+                   "-o", str(o)] for s, o in zip(units, objs)])
+        lib = Path(tmp) / path.name
+        _run_all([[nvcc, *NVCC_FLAGS, *LINK_FLAGS, "-o", str(lib),
+                   *map(str, objs)]])
+        os.replace(lib, path)
 
 
 def load() -> ctypes.CDLL:

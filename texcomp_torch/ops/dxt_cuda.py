@@ -1,8 +1,8 @@
 """Image-level DXT1/DXT5 ops: CUDA kernels with their plain twins.
 
-Each of the four kernels in ``texcomp_torch/csrc/dxt.cu`` has a wrapper
-here (``*_cuda``) and a plain PyTorch version of the same function beside
-it (``*_plain``), built from ``blocks`` and ``codecs.dxt``. The image ops
+Each kernel in ``texcomp_torch/csrc/dxt.cu`` has a wrapper here
+(``*_cuda``) and a plain PyTorch version of the same function beside it
+(``*_plain``), built from ``blocks`` and ``codecs.dxt``. The image ops
 pick by the device of the tensor they are given: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises. No path falls
 back from one to the other.
@@ -10,7 +10,8 @@ back from one to the other.
 Encode takes an (h, w, C) uint8 image and a block grid at least that
 large; pixels beyond the image replicate its edge, as Pixel4x4 does.
 Decode returns the (4 * block_rows, 4 * block_cols, 4) uint8 image on
-every device: RGBX with X = 0 for DXT1, RGBA for DXT5.
+every device: RGBX with X = 0 for DXT1, RGBA for DXT5. The fused
+downsample maps one mip level's payload to the next one's.
 """
 
 from __future__ import annotations
@@ -19,27 +20,17 @@ import functools
 
 import torch
 
-from texcomp_torch.blocks import (
-    extract_blocks,
-    full_outside_mask,
-    num_blocks,
-    scatter_blocks,
-)
+from texcomp_torch.blocks import extract_blocks, full_outside_mask, scatter_blocks
 from texcomp_torch.codecs import dxt
 from texcomp_torch.core.constants import DXTC_CONST_COLOR_TABLE
-from texcomp_torch.ops import _build
-
-#: Launches of each kernel since the last :func:`reset_launches`. A wrapper
-#: adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"dxt1_encode": 0, "dxt5_encode": 0, "dxt1_decode": 0,
-            "dxt5_decode": 0}
+from texcomp_torch.ops._launch import check as _check
+from texcomp_torch.ops._launch import decode_grid as _decode_grid
+from texcomp_torch.ops._launch import downsample_grid as _downsample_grid
+from texcomp_torch.ops._launch import encode_grid as _encode_grid
+from texcomp_torch.ops._launch import launch as _launch
+from texcomp_torch.ops._launch import pick as _pick
 
 _BGRA = [2, 1, 0, 3]
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +85,29 @@ def dxt5_decode_plain(data: torch.Tensor, height: int, width: int,
     return scatter_blocks(px, height=height, width=width)
 
 
+def average_2x2(image: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) uint8 -> (H/2, W/2, C) uint8: the truncating 2x2 average
+    (ComputeAveragePixel2x2; ``>> 2`` on the non-negative sums)."""
+    h, w, c = image.shape
+    sums = image.to(torch.int32).reshape(h // 2, 2, w // 2, 2, c).sum(
+        dim=(1, 3), dtype=torch.int32)
+    return (sums >> 2).to(torch.uint8)
+
+
+def dxtc_downsample_plain(data: torch.Tensor, nby: int, nbx: int,
+                          is_dxt1: bool) -> torch.Tensor:
+    """(nby * nbx, 8 | 16) uint8 payload on an (nby, nbx) block grid, both
+    even -> the (nby * nbx / 4, 8 | 16) payload of the next mip level:
+    swap-free decode, 2x2 truncating average, encode (the Downsample path,
+    compressor4x4_helper.h:602-607)."""
+    h, w = 4 * nby, 4 * nbx
+    if is_dxt1:
+        avg = average_2x2(dxt1_decode_plain(data, h, w)[:, :, :3])
+        return dxt1_encode_plain(avg, h // 2, w // 2)
+    avg = average_2x2(dxt5_decode_plain(data, h, w))
+    return dxt5_encode_plain(avg, h // 2, w // 2)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors only).
 # ---------------------------------------------------------------------------
@@ -103,37 +117,6 @@ def dxt5_decode_plain(data: torch.Tensor, height: int, width: int,
 def _device_lut(device: torch.device) -> torch.Tensor:
     """The (256, 8) uint8 const-color table on ``device``."""
     return torch.from_numpy(DXTC_CONST_COLOR_TABLE).to(device)
-
-
-def _check(t: torch.Tensor, name: str, shape_ok: bool, align: int) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.uint8:
-        raise TypeError(f"{name}: expected uint8, got {t.dtype}")
-    if not shape_ok:
-        raise ValueError(f"{name}: unsupported shape {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % align:
-        raise ValueError(f"{name}: tensor must be contiguous and "
-                         f"{align}-byte aligned")
-
-
-def _launch(name: str, device: torch.device, entry: str, *args) -> None:
-    lib = _build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(*args, stream)
-    if rc != 0:
-        msg = lib.texcomp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
-
-
-def _encode_grid(image: torch.Tensor, grid_height: int, grid_width: int):
-    h, w = image.shape[:2]
-    if not (0 < h <= grid_height and 0 < w <= grid_width):
-        raise ValueError(f"grid {grid_height}x{grid_width} does not cover "
-                         f"image {h}x{w}")
-    return h, w, num_blocks(grid_height), num_blocks(grid_width)
 
 
 def dxt1_encode_cuda(image: torch.Tensor, grid_height: int, grid_width: int,
@@ -163,15 +146,6 @@ def dxt5_encode_cuda(image: torch.Tensor, grid_height: int, grid_width: int,
     return out
 
 
-def _decode_grid(data: torch.Tensor, height: int, width: int):
-    if height % 4 or width % 4:
-        raise ValueError(f"decode extent {height}x{width} is not a block grid")
-    nbr, nbc = height // 4, width // 4
-    if data.shape[0] != nbr * nbc:
-        raise ValueError(f"{data.shape[0]} blocks for a {nbr}x{nbc} grid")
-    return nbr, nbc
-
-
 def dxt1_decode_cuda(data: torch.Tensor, height: int, width: int,
                      swap: bool = False,
                      always4: bool = False) -> torch.Tensor:
@@ -195,17 +169,23 @@ def dxt5_decode_cuda(data: torch.Tensor, height: int, width: int,
     return out
 
 
+def dxtc_downsample_cuda(data: torch.Tensor, nby: int, nbx: int,
+                         is_dxt1: bool) -> torch.Tensor:
+    """Kernel version of :func:`dxtc_downsample_plain`."""
+    bs = 8 if is_dxt1 else 16
+    name = "dxt1_downsample" if is_dxt1 else "dxt5_downsample"
+    _check(data, name, data.dim() == 2 and data.shape[1] == bs, bs)
+    _downsample_grid(data, nby, nbx)
+    out = torch.empty((nby * nbx // 4, bs), dtype=torch.uint8,
+                      device=data.device)
+    _launch(name, data.device, f"texcomp_{name}", data.data_ptr(), nby, nbx,
+            _device_lut(data.device).data_ptr(), out.data_ptr())
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Image ops: dispatch by the tensor's device.
 # ---------------------------------------------------------------------------
-
-
-def _pick(t: torch.Tensor, plain, cuda):
-    if t.device.type == "cpu":
-        return plain
-    if t.device.type == "cuda":
-        return cuda
-    raise ValueError(f"unsupported device {t.device}")
 
 
 def dxtc_encode_padded_image(image: torch.Tensor, grid_height: int,
@@ -250,3 +230,13 @@ def dxt5_decode_image(data: torch.Tensor, *, height: int, width: int,
     (BGRA for swap=True)."""
     fn = _pick(data, dxt5_decode_plain, dxt5_decode_cuda)
     return fn(data, height, width, swap)
+
+
+def dxtc_downsample_encode(data: torch.Tensor, *, nby: int, nbx: int,
+                           is_dxt1: bool) -> torch.Tensor:
+    """One fused mip level: the (N_src, 8 | 16) uint8 payload on an
+    (nby, nbx) block grid (both even) -> the (N_src / 4, 8 | 16) payload of
+    the 2x downsampled level, equal to decode -> 2x2 truncating average ->
+    encode."""
+    fn = _pick(data, dxtc_downsample_plain, dxtc_downsample_cuda)
+    return fn(data, nby, nbx, is_dxt1)
