@@ -12,20 +12,29 @@ line is printed:
                 power limit.
   2. build      the CUDA kernels of texcomp_torch/csrc, built with nvcc
                 (one nvcc per source file, all at once).
-  3. kernels    each of the nine kernels against its plain PyTorch twin on
-                the card at 4096x4096 (1,048,576 blocks), bytes equal:
+  3. kernels    each of the thirteen kernels against its plain PyTorch twin
+                on the card at 4096x4096 (1,048,576 4x4 blocks, 524,288
+                PVRTC 8x4 blocks), bytes equal:
                 DXT1/DXT5 encode of solid and near-solid regions, alpha
                 bands, both swap values, always4 and a ragged 4087x4083
                 image on a 4096x4096 grid; DXT/ETC1 decode of random block
                 bytes and of encoded payloads; ETC1 encode in all four
                 strategies on RGB, RGBX and the ragged image; the fused
                 DXT1/DXT5/ETC1 downsample of encoded and random payloads
-                (ETC1 in all four strategies). Then each kernel's CUDA-event
-                median time against its twin's, and its bound.
-  4. golden     the 29 reference-mode golden cases of
+                (ETC1 in all four strategies); the PVRTC morph (single
+                image, with its own and another fallback pixel), upscale +
+                modulate and mode + pack of random pixels, all-zero and
+                zero-alpha blocks, opaque and translucent and flat tiles;
+                the batched morph, upscale + modulate and mode + pack of a
+                fleet of 192 images of 512x512 and of 1024 of 64x64. Then
+                each kernel's CUDA-event median time against its twin's,
+                and its bound.
+  4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
-                transcode) through the port on cuda, digests equal to
-                tests/golden/expected.json.
+                transcode, 3 PVRTC 2bpp) through the port on cuda, digests
+                equal to tests/golden/expected.json, and the 3 self-pinned
+                PVRTC extension cases (4bpp encode + decode, the 2bpp
+                decode) equal to tests/golden/extensions.json.
   5. main path  at 4096x4096, each path with the launch counts set to 0
                 just before it and read just after, every result byte-equal
                 to the plain path on the card:
@@ -36,8 +45,14 @@ line is printed:
                   DxtcCompressor.downsample_chain of the RGB and RGBA
                   payloads (12 levels: 10 fused, 2 level by level);
                   EtcCompressor.downsample_chain of the ETC1 payload;
-                  transcode_dxt1_to_etc1 of the DXT1 payload.
+                  transcode_dxt1_to_etc1 of the DXT1 payload;
+                  PvrtcCompressor(device="cuda") compress x3 and its
+                  decompress_extension (against the same code on the CPU);
+                  pvrtc_encode_batched x3 of the 192 x 512x512 fleet;
+                  Pvrtc4bppCompressor compress -> decompress at 1024x1024
+                  (plain PyTorch on the card, against the CPU).
                 Every kernel must be launched by the paths that use it.
+                Then the stage split of one 4096x4096 PVRTC compress().
 
 Before the last line it prints one JSON line with each kernel's launches
 in phase 5, its largest difference from its twin, its time, its twin's
@@ -65,12 +80,14 @@ from texcomp_torch import (
     DxtcCompressor,
     EtcCompressor,
     Format,
+    Pvrtc4bppCompressor,
+    PvrtcCompressor,
     transcode_dxt1_to_etc1,
 )
 from texcomp_torch.api import helper4x4 as h4
 from texcomp_torch.blocks import full_outside_mask
 from texcomp_torch.codecs import etc
-from texcomp_torch.ops import _build, _launch, dxt_cuda, etc_cuda
+from texcomp_torch.ops import _build, _launch, dxt_cuda, etc_cuda, pvrtc_cuda
 from texcomp_torch.ops.mipmap import num_chain_levels
 from texcomp_torch.utils.profiling import cuda_time_ms
 
@@ -79,6 +96,11 @@ SIZE = 4096
 PIXELS = SIZE * SIZE
 DXT_SRC = "texcomp_torch/csrc/dxt.cu"
 ETC_SRC = "texcomp_torch/csrc/etc.cu"
+PVRTC_SRC = "texcomp_torch/csrc/pvrtc.cu"
+#: The 512x512 group of bench.py's fleet distribution (_FLEET_DIST), and
+#: its 64x64 group.
+FLEET = (192, 512)
+SMALL_FLEET = (1024, 64)
 
 #: kernel name -> (TPU kernel it replaces, its source, plain twin, wrapper)
 KERNELS = {
@@ -103,6 +125,17 @@ KERNELS = {
     "etc1_downsample": ("texcomp/ops/etc_pallas.py:525", ETC_SRC,  # _etc1_down_kernel
                         etc_cuda.etc1_downsample_plain,
                         etc_cuda.etc1_downsample_cuda),
+    "pvrtc_morph": ("texcomp/ops/pvrtc_fast.py:239", PVRTC_SRC,  # _morph_kernel
+                    pvrtc_cuda.pvrtc_morph_plain, pvrtc_cuda.pvrtc_morph_cuda),
+    "pvrtc_morph_batched": ("texcomp/ops/pvrtc_fast.py:774", PVRTC_SRC,  # _morph_kernel_rowp00
+                            pvrtc_cuda.pvrtc_morph_batched_plain,
+                            pvrtc_cuda.pvrtc_morph_batched_cuda),
+    "pvrtc_upscale_modulate": ("texcomp/ops/pvrtc_fast.py:413", PVRTC_SRC,  # _upmod_kernel
+                               pvrtc_cuda.pvrtc_upscale_modulate_plain,
+                               pvrtc_cuda.pvrtc_upscale_modulate_cuda),
+    "pvrtc_modes_pack": ("texcomp/ops/pvrtc_fast.py:453", PVRTC_SRC,  # _mpc_kernel
+                         pvrtc_cuda.pvrtc_modes_pack_plain,
+                         pvrtc_cuda.pvrtc_modes_pack_cuda),
 }
 
 # ---------------------------------------------------------------------------
@@ -137,17 +170,45 @@ _ETC_DECODE_OPS = 412      # bases, codewords, 16 modified pixels
 _DXT1_DOWN_OPS = 4 * 312 + 48 + _DXT1_ENCODE_OPS  # 4 decodes + sums, avg
 _DXT5_DOWN_OPS = 4 * 614 + 64 + _DXT5_ENCODE_OPS
 _ETC_DOWN_DECODE_OPS = 4 * 412 + 48
+# PVRTC, per 8x4 block of 32 pixels. Morph: per pixel the lightness (6
+# for the channel fields, a multiply, two multiply-adds and a shift: 12)
+# and a strict min and max update on each of five axes (a compare and two
+# selects each, 6, plus 2 for the field of r, g, b or a): 50; per axis the
+# fallback, the four-channel spread and the pair update, 35; the swap 25,
+# the two reductions and packs 76, indexing 20. Upscale + modulate: per
+# pixel 8 for its channels, 64 for two 4-corner weighted sums of 4
+# channels (a multiply, three multiply-adds and a shift each), 32 for the
+# two blended candidates, 48 for four L1 distances, 8 for the early exit
+# and the byte store; per block 126 for the 3x3 neighborhood (wrapped
+# indices and channel fields). Mode + pack: 64 to unpack 32 bytes, per
+# pixel 10 for the three counters, 72 for the edges, mode, colors, Z-order
+# slot and indexing; then 96 for a 1bpp word (3 a pixel) or 52 for a
+# 2bpp one (16 stored pixels and the two flags), as each block's mode in
+# this run's output says.
+_PVRTC_MORPH_OPS = 32 * 50 + 5 * 35 + 25 + 76 + 20
+_PVRTC_UPMOD_OPS = 32 * (8 + 64 + 32 + 48 + 8) + 126
+_PVRTC_PACK_OPS = 64 + 32 * 10 + 72
+_PVRTC_PACK_1BPP_OPS, _PVRTC_PACK_2BPP_OPS = 96, 52
 
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _pvrtc_pack_ops(out: torch.Tensor) -> int:
+    """Mode + pack operations of the records ``out``: 1bpp blocks have
+    bit 0 of the color word (byte 4) clear."""
+    n = out.shape[0]
+    n1 = int(((out[:, 4] & 1) == 0).sum())
+    return (n * _PVRTC_PACK_OPS + n1 * _PVRTC_PACK_1BPP_OPS
+            + (n - n1) * _PVRTC_PACK_2BPP_OPS)
+
+
 def kernel_work(name: str, args: tuple, out: torch.Tensor):
     """(bytes, operations) of one call: each input read once, each output
     written once, and the operations this call's blocks need."""
     data = args[0]
-    nbytes = _nbytes(data, out)
+    nbytes = _nbytes(*(a for a in args if isinstance(a, torch.Tensor)), out)
     if name in ("dxt1_encode", "dxt5_encode", "dxt1_downsample",
                 "dxt5_downsample"):
         nbytes += 256 * 8  # the const-color table
@@ -159,7 +220,13 @@ def kernel_work(name: str, args: tuple, out: torch.Tensor):
         "dxt1_downsample": _DXT1_DOWN_OPS, "dxt5_downsample": _DXT5_DOWN_OPS,
         "etc1_decode": _ETC_DECODE_OPS,
     }
-    if name == "etc1_encode":
+    if name in ("pvrtc_morph", "pvrtc_morph_batched"):
+        ops = out.shape[0] * _PVRTC_MORPH_OPS
+    elif name == "pvrtc_upscale_modulate":
+        ops = out.shape[0] * _PVRTC_UPMOD_OPS
+    elif name == "pvrtc_modes_pack":
+        ops = _pvrtc_pack_ops(out)
+    elif name == "etc1_encode":
         ops = n_out * _ETC_ENCODE_OPS[args[3]]
     elif name == "etc1_downsample":
         ops = n_out * (_ETC_DOWN_DECODE_OPS + _ETC_ENCODE_OPS[args[3]])
@@ -223,6 +290,8 @@ def golden_compressor(case: dict, device):
     if case["codec"] == "etc":
         return EtcCompressor(CompressionStrategy(case["strategy"]),
                              device=device)
+    if case["codec"] == "pvrtc":
+        return PvrtcCompressor(device=device)
     return DxtcCompressor(device=device)
 
 
@@ -245,6 +314,8 @@ def golden_outputs(case: dict, gv, device) -> dict:
     _require(comp.compress(fmt, h, w, 0, img.tobytes(), ci), "compress")
     out = CompressedImage()
     if kind == "encode":
+        if case["codec"] == "pvrtc":  # the reference cannot decode PVRTC
+            return {"out": gv.digest(ci.get_data())}
         buf = bytearray()
         _require(comp.decompress(ci, buf), "decompress")
         return {"out": gv.digest(ci.get_data()), "decoded": gv.digest(bytes(buf))}
@@ -266,15 +337,38 @@ def golden_outputs(case: dict, gv, device) -> dict:
     return {"out": gv.digest(out.get_data())}
 
 
+def extension_golden_outputs(case: dict, gv, device) -> dict:
+    """The digests of one self-pinned extension case (PVRTC 4bpp encode +
+    decode, or the PVRTC 2bpp decode extension) through the port on
+    ``device``, keyed as in tests/golden/extensions.json."""
+    h, w = case["h"], case["w"]
+    img = gv.golden_image(case["seed"], h, w, 4)
+    ci = CompressedImage()
+    buf = bytearray()
+    if case["kind"] == "encode4":
+        comp = Pvrtc4bppCompressor(device=device)
+        _require(comp.compress(Format.RGBA, h, w, 0, img.tobytes(), ci),
+                 "compress")
+        _require(comp.decompress(ci, buf), "decompress")
+    elif case["kind"] == "decode2":
+        comp = PvrtcCompressor(device=device)
+        _require(comp.compress(Format.RGBA, h, w, 0, img.tobytes(), ci),
+                 "compress")
+        _require(comp.decompress_extension(ci, buf), "decompress_extension")
+    else:
+        raise ValueError(f"unknown extension kind {case['kind']!r}")
+    return {"out": gv.digest(ci.get_data()), "decoded": gv.digest(bytes(buf))}
+
+
 def dxtc_golden_cases(gv) -> list[dict]:
     return [c for c in gv.CASES
             if c["codec"] == "dxtc" and c["kind"] != "transcode"]
 
 
 def reference_golden_cases(gv) -> list[dict]:
-    """Every reference-mode case the port covers: DXTC, ETC1 and the
-    DXT1 -> ETC1 transcode (PVRTC is not ported yet)."""
-    return [c for c in gv.CASES if c["codec"] in ("dxtc", "etc")]
+    """Every reference-mode case: DXTC, ETC1, the DXT1 -> ETC1 transcode
+    and PVRTC 2bpp."""
+    return [c for c in gv.CASES if c["codec"] in ("dxtc", "etc", "pvrtc")]
 
 
 def _load_golden_vectors():
@@ -313,8 +407,38 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor) -> dict:
-    """kernel name -> [(label, args)]; the first case of each is timed."""
+def pvrtc_images(rgba: torch.Tensor) -> dict:
+    """The PVRTC inputs on the card: a 4096^2 image of random pixels; the
+    RGBA test image (solid 32x32 tiles with alpha 0, 255 or a gradient,
+    near-solid tiles, gradient, noise) with every 7th 8x4 block all zero
+    and every 11th block's alpha zero ("tiles"); the fleet of 192 images of
+    512^2 (its 64 crops and 128 random images) and 1024 of 64^2 (every
+    fourth 64^2 crop of it)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tiles = rgba.clone()
+    blocks = tiles.view(SIZE // 4, 4, SIZE // 8, 8, 4)
+    blocks[::7, :, ::7] = 0
+    blocks[3::11, :, 5::11, :, 3] = 0
+
+    def crops(side):
+        k = SIZE // side
+        return tiles.reshape(k, side, k, side, 4).permute(0, 2, 1, 3, 4).reshape(
+            k * k, side, side, 4)
+
+    def random(*shape):
+        return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8,
+                             device="cuda")
+
+    n, side = FLEET
+    fleet = torch.cat([crops(side), random(n - 64, side, side, 4)])
+    n_small, small = SMALL_FLEET
+    return {"random": random(SIZE, SIZE, 4), "tiles": tiles, "fleet": fleet,
+            "small fleet": crops(small)[::4][:n_small].contiguous()}
+
+
+def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
+    """kernel name -> [(label, args)]; the first case of each is timed.
+    ``pv`` holds the PVRTC inputs (:func:`pvrtc_images`)."""
     g = torch.Generator().manual_seed(7)
     rand8 = torch.randint(0, 256, (PIXELS // 16, 8), generator=g,
                           dtype=torch.uint8).cuda()
@@ -379,6 +503,42 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor) -> dict:
         ],
         "etc1_downsample": [
             (f"encoded s{s}", (etc_payload, nb, nb, s)) for s in strategies],
+        **pvrtc_kernel_cases(pv),
+    }
+
+
+def pvrtc_kernel_cases(images: dict) -> dict:
+    """The PVRTC kernels' cases; each stage's input comes from the kernel
+    before it (which phase 3 holds to its twin on the same inputs)."""
+    image, tiles = images["random"], images["tiles"]
+    other = torch.tensor([9, 200, 31, 77], dtype=torch.uint8, device="cuda")
+    nby, nbx = SIZE // 4, SIZE // 8
+    stack = {"random": image[None], "tiles": tiles[None],
+             f"fleet {FLEET[0]}x{FLEET[1]}": images["fleet"],
+             f"fleet {SMALL_FLEET[0]}x{SMALL_FLEET[1]}": images["small fleet"]}
+    ab = {"random": pvrtc_cuda.pvrtc_morph_cuda(image, image[0, 0]),
+          "tiles": pvrtc_cuda.pvrtc_morph_cuda(tiles, tiles[0, 0])}
+    for label in list(stack)[2:]:
+        ab[label] = pvrtc_cuda.pvrtc_morph_batched_cuda(stack[label])
+    mod = {label: pvrtc_cuda.pvrtc_upscale_modulate_cuda(stack[label], ab[label])
+           for label in stack}
+    g = torch.Generator(device="cuda").manual_seed(13)
+    rand_mod = torch.randint(0, 4, (nby * nbx, 32), generator=g,
+                             dtype=torch.uint8, device="cuda")
+    grid = {label: (t.shape[1] // 4, t.shape[2] // 8)
+            for label, t in stack.items()}
+    return {
+        "pvrtc_morph": [
+            ("random", (image, image[0, 0])),
+            ("tiles", (tiles, tiles[0, 0])),
+            ("tiles, another fallback pixel", (tiles, other))],
+        "pvrtc_morph_batched": [
+            (label, (stack[label],)) for label in list(stack)[2:]],
+        "pvrtc_upscale_modulate": [
+            (label, (stack[label], ab[label])) for label in stack],
+        "pvrtc_modes_pack": [
+            (label, (mod[label], ab[label], *grid[label])) for label in stack]
+            + [("random modulation", (rand_mod, ab["random"], nby, nbx))],
     }
 
 
@@ -398,9 +558,9 @@ def _unfused_level(name: str, args: tuple):
         dxt_cuda.dxt5_decode_cuda(data, h, w)), h // 2, w // 2)
 
 
-def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor) -> dict:
+def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
     """Kernel vs plain on the card; returns per-kernel results."""
-    cases = kernel_cases(rgb, rgba)
+    cases = kernel_cases(rgb, rgba, pv)
     results = {}
     for name, (replaces, source, plain, kernel) in KERNELS.items():
         worst = 0
@@ -436,6 +596,17 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor) -> dict:
             t = cuda_time_ms(unfused, repeats=20)
             print(f"[kernels] {name}: decode + average + encode kernels "
                   f"{t:.4f} ms against fused {ms:.4f} ms", flush=True)
+        if name.startswith("pvrtc"):
+            # The fleets' times beside the timed case's.
+            per = []
+            for label, args in cases[name][1:]:
+                if label.startswith("fleet"):
+                    t = cuda_time_ms(lambda: kernel(*args), repeats=20)
+                    b_ms, b_by = bound(*kernel_work(name, args, kernel(*args)))
+                    per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
+            if per:
+                print(f"[kernels] {name} on the fleets: {'; '.join(per)}",
+                      flush=True)
         if name in ("etc1_encode", "etc1_downsample"):
             # Every strategy's time: the search differs by strategy.
             per = []
@@ -449,14 +620,21 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor) -> dict:
 
 
 def phase_golden(gv) -> None:
-    expected = json.loads((ROOT / "tests" / "golden" / "expected.json").read_text())
+    golden = ROOT / "tests" / "golden"
+    expected = json.loads((golden / "expected.json").read_text())
     cases = reference_golden_cases(gv)
     for case in cases:
         got = golden_outputs(case, gv, "cuda")
         if got != expected[case["name"]]:
             fail(f"golden {case['name']}: {got} != {expected[case['name']]}")
+    ext_expected = json.loads((golden / "extensions.json").read_text())
+    for case in gv.EXT_CASES:
+        got = extension_golden_outputs(case, gv, "cuda")
+        if got != ext_expected[case["name"]]:
+            fail(f"golden {case['name']}: {got} != {ext_expected[case['name']]}")
     print(f"[golden] {len(cases)} reference-mode golden digests "
-          f"({len(dxtc_golden_cases(gv))} DXTC, ETC1, transcode) equal on cuda",
+          f"({len(dxtc_golden_cases(gv))} DXTC, ETC1, transcode, PVRTC) and "
+          f"{len(gv.EXT_CASES)} PVRTC extension digests equal on cuda",
           flush=True)
 
 
@@ -638,16 +816,139 @@ def main_transcode(payloads: dict, launches: Launches, gpu: str) -> None:
           f"wall {_wall(times)}", flush=True)
 
 
-def phase_main_path(images: dict, gpu: str) -> dict:
+def plain_pvrtc_encode(images: torch.Tensor) -> torch.Tensor:
+    """The plain twins' PVRTC 2bpp encode of (B, H, W, 4) images, each
+    falling back to its own pixel (0, 0): (B * NB, 8) records."""
+    nby, nbx = images.shape[1] // 4, images.shape[2] // 8
+    ab = pvrtc_cuda.pvrtc_morph_batched_plain(images)
+    mod = pvrtc_cuda.pvrtc_upscale_modulate_plain(images, ab)
+    return pvrtc_cuda.pvrtc_modes_pack_plain(mod, ab, nby, nbx)
+
+
+def main_pvrtc(pv: dict, launches: Launches, gpu: str) -> np.ndarray:
+    """PvrtcCompressor compress x3 and decompress_extension at 4096^2, the
+    batched encode of the 192 x 512^2 fleet x3, and the 4bpp round trip at
+    1024^2; returns the 4096^2 image."""
+    runs = 3
+    img = pv["tiles"].cpu().numpy()
+    comp = PvrtcCompressor(device="cuda")
+
+    def compress():
+        ci = CompressedImage()
+        _require(comp.compress(Format.RGBA, SIZE, SIZE, 0, img, ci), "compress")
+        return ci
+
+    ci, times = launches.run(
+        f"PVRTC compress x{runs}",
+        ("pvrtc_morph", "pvrtc_upscale_modulate", "pvrtc_modes_pack"),
+        lambda: _timed(compress, runs))
+    want = plain_pvrtc_encode(pv["tiles"][None])
+    if not np.array_equal(ci.get_data(), want.cpu().numpy().reshape(-1)):
+        fail("PVRTC payload differs from the plain path")
+    buf, cpu_buf = bytearray(), bytearray()
+    t0 = time.perf_counter()
+    _require(comp.decompress_extension(ci, buf), "decompress_extension")
+    t_dec = time.perf_counter() - t0
+    _require(PvrtcCompressor(device="cpu").decompress_extension(ci, cpu_buf),
+             "decompress_extension on the cpu")
+    if buf != cpu_buf:
+        fail("PVRTC decompress_extension on cuda differs from the cpu")
+    decoded = np.frombuffer(bytes(buf), np.uint8).reshape(img.shape)
+    err = np.abs(decoded.astype(np.int16) - img).mean()
+    print(f"[main] PVRTC 2bpp {SIZE}x{SIZE} on {gpu}: payload equal to plain, "
+          f"decompress_extension equal to the cpu; mean |decoded-input| "
+          f"{err:.2f}; compress wall {_wall(times)}, decompress_extension "
+          f"{t_dec * 1e3:.1f} ms, incl. host<->device copies", flush=True)
+
+    fleet = pv["fleet"]
+    n, side = FLEET
+    out, times = launches.run(
+        f"pvrtc_encode_batched x{runs} ({n} x {side}^2)",
+        ("pvrtc_morph_batched", "pvrtc_upscale_modulate", "pvrtc_modes_pack"),
+        lambda: _timed(lambda: pvrtc_cuda.pvrtc_encode_batched(fleet), runs))
+    if not torch.equal(out.reshape(-1, 8), plain_pvrtc_encode(fleet)):
+        fail("PVRTC batched encode differs from the plain path")
+    for i in (0, n - 1):
+        if not torch.equal(out[i], pvrtc_cuda.pvrtc_encode_image(fleet[i])):
+            fail(f"PVRTC batched encode of image {i} differs from its "
+                 "single-image encode")
+    m = statistics.median(times)
+    print(f"[main] pvrtc_encode_batched {n} x {side}x{side} on {gpu}: equal to "
+          f"plain and to the single-image encode; device-resident wall "
+          f"{m * 1e3:.2f} ms ({n * side * side / m / 1e6:.1f} Mpix/s; median "
+          f"of {runs}, first {times[0] * 1e3:.2f} ms)", flush=True)
+
+    side4 = SIZE // 4
+    img4 = np.ascontiguousarray(img[::4, ::4])
+
+    def round_trip4(device):
+        comp4 = Pvrtc4bppCompressor(device=device)
+        ci4, buf4 = CompressedImage(), bytearray()
+        _require(comp4.compress(Format.RGBA, side4, side4, 0, img4, ci4),
+                 "4bpp compress")
+        _require(comp4.decompress(ci4, buf4), "4bpp decompress")
+        return ci4, buf4
+
+    (ci4, buf4), times = launches.run(
+        "PVRTC 4bpp compress -> decompress (plain PyTorch)", (),
+        lambda: _timed(lambda: round_trip4("cuda"), 1))
+    cpu_ci4, cpu_buf4 = round_trip4("cpu")
+    if not np.array_equal(ci4.get_data(), cpu_ci4.get_data()) or buf4 != cpu_buf4:
+        fail("PVRTC 4bpp on cuda differs from the cpu")
+    print(f"[main] PVRTC 4bpp {side4}x{side4} on {gpu}: payload and decoded "
+          f"bytes equal to the cpu; compress + decompress wall "
+          f"{times[0] * 1e3:.1f} ms", flush=True)
+    return img
+
+
+def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 5) -> None:
+    """Where a 4096^2 PvrtcCompressor.compress() spends its time: the steps
+    it takes, on the host clock, synchronised after each device step."""
+    nby, nbx = SIZE // 4, SIZE // 8
+    names = ("host->device copy of the image", "morph kernel",
+             "upscale + modulate kernel", "mode + pack kernel",
+             "device->host copy of the payload", "host store of the payload")
+    times = {k: [] for k in names}
+    for _ in range(runs):
+        t = [time.perf_counter()]
+
+        def step():
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+
+        dev = h4._to_device(img, torch.device("cuda"))
+        step()
+        ab = pvrtc_cuda.pvrtc_morph_cuda(dev, dev[0, 0])
+        step()
+        mod = pvrtc_cuda.pvrtc_upscale_modulate_cuda(dev[None], ab)
+        step()
+        rec = pvrtc_cuda.pvrtc_modes_pack_cuda(mod, ab, nby, nbx)
+        step()
+        host = rec.cpu().numpy()
+        step()
+        payload = np.empty(SIZE * SIZE // 4, np.uint8)
+        payload[:] = host.reshape(-1)
+        step()
+        for k, a, b in zip(names, t, t[1:]):
+            times[k].append(b - a)
+    print(f"[main] PVRTC compress() {SIZE}x{SIZE} stages on {gpu} (host clock, "
+          f"ms, median of {runs}): " + "; ".join(
+              f"{k} {statistics.median(v) * 1e3:.3f}" for k, v in times.items()),
+          flush=True)
+
+
+def phase_main_path(images: dict, pv: dict, gpu: str) -> dict:
     """The main paths at 4096^2; returns the launch counts, summed."""
     launches = Launches()
     payloads = main_round_trips(images, launches, gpu)
     main_chains(payloads, launches, gpu)
     main_transcode(payloads, launches, gpu)
+    pvrtc_img = main_pvrtc(pv, launches, gpu)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)
+    pvrtc_stage_split(pvrtc_img, gpu)
     return launches.total
 
 
@@ -657,10 +958,12 @@ def main() -> int:
     gv = _load_golden_vectors()
     rgb_np = make_image(1, SIZE, SIZE, 3)
     rgba_np = make_image(2, SIZE, SIZE, 4)
-    kernels = phase_kernels(torch.from_numpy(rgb_np).cuda(),
-                            torch.from_numpy(rgba_np).cuda())
+    rgba = torch.from_numpy(rgba_np).cuda()
+    pv = pvrtc_images(rgba)
+    kernels = phase_kernels(torch.from_numpy(rgb_np).cuda(), rgba, pv)
     phase_golden(gv)
-    launches = phase_main_path({Format.RGB: rgb_np, Format.RGBA: rgba_np}, gpu)
+    launches = phase_main_path({Format.RGB: rgb_np, Format.RGBA: rgba_np}, pv,
+                               gpu)
 
     report = [{"name": name, "route": "cuda", "source": r["source"],
                "replaces": r["replaces"], "launches": launches[name],

@@ -12,8 +12,12 @@ bytes for the same input. It imports ``torch`` and never ``jax``.
 
 It covers, in reference quality, DXT1/DXT5 (``DxtcCompressor``), ETC1 in
 its four strategies (``EtcCompressor``), mip chains of both
-(``downsample_chain``) and the DXT1 -> ETC1 transcoder
-(``transcode_dxt1_to_etc1``). Every entry point runs on the card unless the
+(``downsample_chain``), the DXT1 -> ETC1 transcoder
+(``transcode_dxt1_to_etc1``) and PVRTC v1: 2bpp encode
+(``PvrtcCompressor``, and ``ops.pvrtc_cuda.pvrtc_encode_batched`` for a
+batch of same-size images) with its decode extension
+(``PvrtcCompressor.decompress_extension``), and the 4bpp extension
+(``Pvrtc4bppCompressor``). Every entry point runs on the card unless the
 caller passes ``device="cpu"``.
 """
 
@@ -21,6 +25,7 @@ from texcomp_torch.api.compressor import Compressor
 from texcomp_torch.api.container import CompressedImage, Format, Metadata
 from texcomp_torch.api.dxtc import DxtcCompressor
 from texcomp_torch.api.etc import CompressionStrategy, EtcCompressor
+from texcomp_torch.api.pvrtc import Pvrtc4bppCompressor, PvrtcCompressor
 from texcomp_torch.api.transcode import transcode_dxt1_to_etc1
 
 __all__ = [
@@ -31,5 +36,7 @@ __all__ = [
     "DxtcCompressor",
     "EtcCompressor",
     "CompressionStrategy",
+    "PvrtcCompressor",
+    "Pvrtc4bppCompressor",
     "transcode_dxt1_to_etc1",
 ]

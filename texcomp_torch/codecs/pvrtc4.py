@@ -1,0 +1,76 @@
+"""PVRTC v1 4-bits-per-pixel RGBA encode/decode (EXTENSION), in plain
+PyTorch on any device.
+
+The reference implements only the 2BPP variant (pvrtc_compressor.h:16-17).
+Same low-frequency-signal-modulation design: two low-res palette images A/B
+bilinearly upscaled with wrap-around, plus a per-pixel 2-bit modulation,
+but with 4x4 blocks, all 16 modulation values stored (no checkerboard) and
+/16 bilinear weights. The encoder is the 2BPP one in shape: the
+GetExtremesFast extremes (the same tie-breaks, all-zero-axis fallback and
+reduction), the early-exit BestModulation, and the same color word with
+the mode bit clear; 64-bit records in Z-order (square grids only).
+
+It shares the reduction, color-packing, upscale and modulation helpers of
+``codecs.pvrtc``. texcomp computes it outside any Pallas kernel, so there
+is no kernel of its own.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from texcomp_torch.codecs import pvrtc
+
+BLOCK = 4  # 4x4 blocks, 2 bits/pixel modulation + 64-bit record = 4 bpp
+
+# Bit position of pixel (y, x) in the modulation word: 2 * (y * 4 + x).
+_SHIFTS = 2 * torch.arange(BLOCK * BLOCK, dtype=torch.int32).reshape(
+    BLOCK, BLOCK)
+
+
+def encode_pvrtc_4bpp(image: torch.Tensor) -> torch.Tensor:
+    """(H, W, 4) uint8 (square power-of-two, >= 4) -> (NB, 8) uint8 Z-order
+    4bpp records: the 32-bit modulation word (2 bits/pixel, pixel (y, x)
+    at bit 2*(y*4+x)) then the 32-bit color word, both little-endian."""
+    h, w = image.shape[0], image.shape[1]
+    nb = h // BLOCK
+    img = image.to(torch.int32)
+    lo, hi = pvrtc._morph_extremes(img, BLOCK, BLOCK)
+    a = pvrtc._apply_color_channel_reduction(lo, is_b=False)
+    b = pvrtc._apply_color_channel_reduction(hi, is_b=True)
+    a_up = pvrtc._interpolate_upscaled(a, h, w, BLOCK, BLOCK)
+    b_up = pvrtc._interpolate_upscaled(b, h, w, BLOCK, BLOCK)
+    mod = pvrtc._modulate(img, a_up, b_up)
+
+    blocks = mod.reshape(nb, BLOCK, nb, BLOCK).transpose(1, 2)
+    mod_words = pvrtc._word_sum(blocks << _SHIFTS.to(image.device)).reshape(-1)
+    # Bit 0 of the color word is the mode flag: 0, the standard weights.
+    modes0 = torch.zeros((nb, nb), dtype=torch.int32, device=image.device)
+    color_words = pvrtc._encode_colors(a, b, modes0).reshape(-1)
+    perm = pvrtc._perm(nb, nb, image.device)
+    return pvrtc._pack_records(mod_words[perm], color_words[perm])
+
+
+def decode_pvrtc_4bpp(data: torch.Tensor, height: int,
+                      width: int) -> torch.Tensor:
+    """(NB, 8) uint8 4bpp records -> (H, W, 4) uint8."""
+    h, w = height, width
+    nb = h // BLOCK
+    mod_words, color_words = pvrtc.records_to_words(data)
+    mod_words = pvrtc.unpermute_zorder(mod_words, nb, nb)
+    color_words = pvrtc.unpermute_zorder(color_words, nb, nb)
+
+    a_up = pvrtc._interpolate_upscaled(
+        pvrtc._decode_color(color_words, is_b=False), h, w, BLOCK, BLOCK)
+    b_up = pvrtc._interpolate_upscaled(
+        pvrtc._decode_color(color_words, is_b=True), h, w, BLOCK, BLOCK)
+
+    shifts = _SHIFTS.to(data.device)
+    mod = (mod_words[:, :, None, None] >> shifts) & 3  # (nb, nb, 4, 4)
+    mod = mod.transpose(1, 2).reshape(h, w)[..., None]
+
+    out = a_up
+    out = torch.where(mod == 1, (5 * a_up + 3 * b_up) >> 3, out)
+    out = torch.where(mod == 2, (3 * a_up + 5 * b_up) >> 3, out)
+    out = torch.where(mod == 3, b_up, out)
+    return out.clamp(0, 255).to(torch.uint8)

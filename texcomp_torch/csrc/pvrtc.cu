@@ -1,0 +1,403 @@
+// PVRTC v1 2bpp encode for Hopper (sm_90a): morph (single image and
+// batched), bilinear upscale + modulation, and mode decision + packing.
+//
+// Four kernels, one thread per 8x4 block, integer arithmetic only. Each is
+// byte-exact with its plain twin in texcomp_torch/ops/pvrtc_cuda.py, built
+// from texcomp_torch/codecs/pvrtc.py, which follows the reference's
+// pvrtc_compressor.cc. The entry points at the bottom have a plain C
+// interface: pointers, ints and a stream, returning cudaGetLastError() so
+// the caller sees a refused launch.
+//
+// Layouts. Images are (B, H, W, 4) uint8, read as one 32-bit word a pixel
+// (r | g << 8 | b << 16 | a << 24). A block n = b * nby * nbx + by * nbx + bx
+// has ab[n] = (A, B), its packed reduced colors, and 32 modulation bytes at
+// mod[32 n + py * 8 + px]. The records of image b go to out[b * nb + slot],
+// slot the block's Z-order position. Neighbor blocks wrap within their own
+// image.
+//
+// What the TPU kernels needed and these do not: the nine pre-rolled low-res
+// variants (_make_var_words) and the right/below edge tiles (_mode_edges),
+// since a thread reads its wrapped neighbors itself; the one-hot bf16
+// upscale matmul (_upscale_weights), since the four corner weights of a
+// pixel are compile-time constants here; and the MXU Z-order permutation
+// (_zorder_words), since the last kernel stores each record in its slot.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ int chan(uint32_t w, int c) {
+  return (w >> (8 * c)) & 255;
+}
+
+__device__ __forceinline__ uint32_t pack(int r, int g, int b, int a) {
+  return uint32_t(r) | (uint32_t(g) << 8) | (uint32_t(b) << 16) |
+         (uint32_t(a) << 24);
+}
+
+// Encode to d bits, decode to 8 by bit replication
+// (pvrtc_compressor.cc:93-106).
+__device__ __forceinline__ int bit_depth(int v, int d) {
+  const int enc = v & (((1 << d) - 1) << (8 - d));
+  int out = enc | (enc >> d);
+  if (d <= 3) out |= enc >> (2 * d);
+  return out;
+}
+
+// ApplyColorChannelReduction (pvrtc_compressor.cc:337-349): 554 (A) or 555
+// (B) opaque, 3443 (A) or 3444 (B) translucent.
+template <bool kIsB>
+__device__ __forceinline__ uint32_t reduce_color(uint32_t w) {
+  const int r = chan(w, 0), g = chan(w, 1), b = chan(w, 2), a = chan(w, 3);
+  if (a == 255)
+    return pack(bit_depth(r, 5), bit_depth(g, 5), bit_depth(b, kIsB ? 5 : 4),
+                255);
+  return pack(bit_depth(r, 4), bit_depth(g, 4), bit_depth(b, kIsB ? 4 : 3),
+              bit_depth(a, 3));
+}
+
+// Axis k of GetExtremesFast's five (pvrtc_compressor.cc:262-302):
+// lightness, r, g, b, a.
+__device__ __forceinline__ int axis_value(int k, uint32_t w) {
+  if (k == 0) return (77 * chan(w, 0) + 150 * chan(w, 1) + 28 * chan(w, 2)) >> 8;
+  return chan(w, k - 1);
+}
+
+__device__ __forceinline__ int channel_sum(uint32_t w) {
+  return chan(w, 0) + chan(w, 1) + chan(w, 2) + chan(w, 3);
+}
+
+// Pixel (py, px) of block (bx, by) in a (W)-wide image of words.
+__device__ __forceinline__ void load_block_row(const uint32_t* img, int w,
+                                               int by, int bx, int py,
+                                               uint32_t (&p)[8]) {
+  const uint4* row =
+      reinterpret_cast<const uint4*>(img + (long long)(4 * by + py) * w + 8 * bx);
+  const uint4 q0 = row[0], q1 = row[1];
+  p[0] = q0.x; p[1] = q0.y; p[2] = q0.z; p[3] = q0.w;
+  p[4] = q1.x; p[5] = q1.y; p[6] = q1.z; p[7] = q1.w;
+}
+
+// Replaces texcomp/ops/pvrtc_fast.py:_morph_kernel (kBatched false) and
+// _morph_kernel_rowp00 (kBatched true), both on _morph_words.
+//
+// GetExtremesFast + ApplyColorChannelReduction (pvrtc_compressor.cc:
+// 255-349, :506-521) on one block's 32 pixels in scan order s = py*8+px:
+// per axis the first-occurrence min and max (strict '<' / '>'), the max of
+// an axis that is 0 everywhere in the block falling back to the origin
+// pixel; the first axis of largest L1 spread (strict '>'); the darker of
+// the pair (four-channel sum) as A.
+//
+// The origin pixel is one word for a single image (the image's own pixel
+// (0, 0), or any pixel the caller names), and image b's pixel (0, 0) in
+// the batched form.
+//
+// Bound on the H100: memory traffic. At 4096^2 it reads 64 MiB and writes
+// 4 MiB, 21 us at 3.35 TB/s; the scans are about 1,900 integer operations
+// a block, 15 us at 67 T op/s (chip_smoke.py counts them). A thread reads
+// its block as eight 16-byte loads; a warp's loads of one pixel row cover
+// 1 KiB.
+template <bool kBatched>
+__global__ void __launch_bounds__(kThreads)
+morph_kernel(const uint32_t* __restrict__ img, int batch, int nby, int nbx,
+             const uint32_t* __restrict__ origin, uint2* __restrict__ ab) {
+  const long long nb = (long long)nby * nbx;
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= batch * nb) return;
+  const long long image = n / nb;
+  const int rem = int(n - image * nb);
+  const int by = rem / nbx, bx = rem % nbx;
+  const int w = 8 * nbx;
+  const uint32_t* base = img + image * nb * 32;
+  const uint32_t o = kBatched ? base[0] : origin[0];
+
+  uint32_t p[32];
+#pragma unroll
+  for (int py = 0; py < 4; ++py) {
+    uint32_t row[8];
+    load_block_row(base, w, by, bx, py, row);
+#pragma unroll
+    for (int px = 0; px < 8; ++px) p[8 * py + px] = row[px];
+  }
+
+  uint32_t best_lo = 0, best_hi = 0;
+  int best_diff = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    int fmin = axis_value(k, p[0]), fmax = fmin;
+    uint32_t wmin = p[0], wmax = p[0];
+#pragma unroll
+    for (int s = 1; s < 32; ++s) {
+      const int v = axis_value(k, p[s]);
+      if (v < fmin) { fmin = v; wmin = p[s]; }
+      if (v > fmax) { fmax = v; wmax = p[s]; }
+    }
+    if (fmax == 0) wmax = o;  // the all-zero-axis quirk
+    int diff = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) diff += abs(chan(wmax, c) - chan(wmin, c));
+    if (k == 0 || diff > best_diff) {
+      best_diff = diff;
+      best_lo = wmin;
+      best_hi = wmax;
+    }
+  }
+  if (channel_sum(best_hi) < channel_sum(best_lo)) {
+    const uint32_t t = best_lo;
+    best_lo = best_hi;
+    best_hi = t;
+  }
+  ab[n] = make_uint2(reduce_color<false>(best_lo), reduce_color<true>(best_hi));
+}
+
+// Replaces texcomp/ops/pvrtc_fast.py:_upmod_kernel (_upscale_modulate_16).
+//
+// GetInterpolatedColor2BPP + BestModulation (pvrtc_compressor.cc:148-237,
+// :527-540). The thread reads the 3x3 low-res neighborhood of its block,
+// wrapped within the image. Pixel (py, px) takes the left column bx-1 iff
+// px < 4 and the top row by-1 iff py < 2, with weights xw = (px+4) & 7 and
+// yw = (py+2) & 3: the upscaled channel is the 4-corner integer sum >> 5.
+// The modulation is the best of A, (5A+3B)>>3, (3A+5B)>>3 and B by L1
+// distance under the reference's early exit: a candidate counts only if
+// every earlier one improved.
+//
+// Bound on the H100: integer issue. At 4096^2 it reads 64 MiB of pixels and
+// 4 MiB of colors and writes 16 MiB, 26 us at 3.35 TB/s, but the two
+// upscales and four candidate distances are about 160 integer operations a
+// pixel, 41 us at 67 T op/s (chip_smoke.py counts them). One thread per
+// block with every weight a compile-time constant.
+__global__ void __launch_bounds__(kThreads)
+upscale_modulate_kernel(const uint32_t* __restrict__ img,
+                        const uint2* __restrict__ ab, int batch, int nby,
+                        int nbx, uint4* __restrict__ mod) {
+  const long long nb = (long long)nby * nbx;
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= batch * nb) return;
+  const long long image = n / nb;
+  const int rem = int(n - image * nb);
+  const int by = rem / nbx, bx = rem % nbx;
+  const int w = 8 * nbx;
+  const uint32_t* base = img + image * nb * 32;
+  const uint2* low = ab + image * nb;
+
+  // lo[r][c], hi[r][c]: rows by-1, by, by+1 and columns bx-1, bx, bx+1.
+  uint32_t lo[3][3], hi[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const int y = (by + r - 1 + nby) % nby;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const uint2 v = low[(long long)y * nbx + (bx + c - 1 + nbx) % nbx];
+      lo[r][c] = v.x;
+      hi[r][c] = v.y;
+    }
+  }
+
+  uint32_t out[8];
+#pragma unroll
+  for (int py = 0; py < 4; ++py) {
+    uint32_t row[8];
+    load_block_row(base, w, by, bx, py, row);
+    const int top = py < 2 ? 0 : 1;
+    const int yw = (py + 2) & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int px = 4 * half + q;
+        const int left = px < 4 ? 0 : 1;
+        const int xw = (px + 4) & 7;
+        const int w00 = (4 - yw) * (8 - xw), w01 = (4 - yw) * xw;
+        const int w10 = yw * (8 - xw), w11 = yw * xw;
+        int a_up[4], b_up[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          a_up[c] = (w00 * chan(lo[top][left], c) +
+                     w01 * chan(lo[top][left + 1], c) +
+                     w10 * chan(lo[top + 1][left], c) +
+                     w11 * chan(lo[top + 1][left + 1], c)) >> 5;
+          b_up[c] = (w00 * chan(hi[top][left], c) +
+                     w01 * chan(hi[top][left + 1], c) +
+                     w10 * chan(hi[top + 1][left], c) +
+                     w11 * chan(hi[top + 1][left + 1], c)) >> 5;
+        }
+        int d0 = 0, d1 = 0, d2 = 0, d3 = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int v = chan(row[px], c);
+          d0 += abs(v - a_up[c]);
+          d1 += abs(v - ((5 * a_up[c] + 3 * b_up[c]) >> 3));
+          d2 += abs(v - ((3 * a_up[c] + 5 * b_up[c]) >> 3));
+          d3 += abs(v - b_up[c]);
+        }
+        // Early exit (BestModulation, pvrtc_compressor.cc:148-166).
+        uint32_t m = 0;
+        if (d1 < d0) {
+          m = 1;
+          if (d2 < d1) {
+            m = 2;
+            if (d3 < d2) m = 3;
+          }
+        }
+        word |= m << (8 * q);
+      }
+      out[2 * py + half] = word;
+    }
+  }
+  mod[2 * n] = make_uint4(out[0], out[1], out[2], out[3]);
+  mod[2 * n + 1] = make_uint4(out[4], out[5], out[6], out[7]);
+}
+
+// Bits j of v at positions 2j (v < 2^16).
+__device__ __forceinline__ uint32_t spread_bits(uint32_t v) {
+  v &= 0xFFFF;
+  v = (v | (v << 8)) & 0x00FF00FFu;
+  v = (v | (v << 4)) & 0x0F0F0F0Fu;
+  v = (v | (v << 2)) & 0x33333333u;
+  v = (v | (v << 1)) & 0x55555555u;
+  return v;
+}
+
+// Replaces texcomp/ops/pvrtc_fast.py:_mpc_kernel (_modes_pack_colors_body),
+// and with it _mode_edges and the Z-order permutation (_zorder_words).
+//
+// CalculateBlockModulationMode (pvrtc_compressor.cc:395-447) with the
+// reference's crossed counters: horizontal_count sums the deltas to the
+// pixel below, vertical_count those to the pixel on the right; the pixel
+// right of px = 7 is px = 0 of the block to the right and the one below
+// py = 3 is py = 0 of the block below, both wrapped within the image. Then
+// CalculateBlockModulationData (:456-496; the 2bpp sub-mode flags steal bit
+// positions 0 and 20) and EncodeColors (:356-388). The record, LE
+// modulation word then LE color word, goes to Z-order slot y-bits-even,
+// x-bits-odd of (bx, by): a bijection onto [0, nb) for the (2 * nbx, nbx)
+// power-of-two grids of square images, which the wrapper checks.
+//
+// Bound on the H100: memory traffic. At 4096^2 it reads 16 MiB of
+// modulation and 4 MiB of colors and writes 4 MiB, 7.5 us at 3.35 TB/s;
+// about 510 (2bpp modes) to 550 (1bpp) integer operations a block.
+__global__ void __launch_bounds__(kThreads)
+modes_pack_kernel(const uint8_t* __restrict__ mod, const uint2* __restrict__ ab,
+                  int batch, int nby, int nbx, uint2* __restrict__ out) {
+  const long long nb = (long long)nby * nbx;
+  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (n >= batch * nb) return;
+  const long long image = n / nb;
+  const int rem = int(n - image * nb);
+  const int by = rem / nbx, bx = rem % nbx;
+  const long long first = image * nb;
+
+  int m[32];
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(mod + 32 * n);
+    const uint4 q0 = src[0], q1 = src[1];
+    const uint32_t words[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int s = 0; s < 32; ++s) m[s] = (words[s >> 2] >> (8 * (s & 3))) & 255;
+  }
+  const uint8_t* right =
+      mod + 32 * (first + (long long)by * nbx + (bx + 1) % nbx);
+  const uint2 below = *reinterpret_cast<const uint2*>(
+      mod + 32 * (first + (long long)((by + 1) % nby) * nbx + bx));
+
+  int intermediate = 0, horizontal_count = 0, vertical_count = 0;
+#pragma unroll
+  for (int s = 0; s < 32; ++s) {
+    const int py = s >> 3, px = s & 7;
+    const int nh = px < 7 ? m[s + 1] : int(right[8 * py]);
+    const int nv = py < 3 ? m[s + 8]
+                          : int(((px < 4 ? below.x : below.y) >> (8 * (px & 3))) & 255);
+    intermediate += (m[s] == 1) | (m[s] == 2);
+    horizontal_count += abs(m[s] - nv);  // crossed, per the reference
+    vertical_count += abs(m[s] - nh);
+  }
+  int mode;  // 0 = 1bpp, 1 = average4, 2 = vertical, 3 = horizontal
+  if (intermediate <= 4) mode = 0;
+  else if (vertical_count > 10 && vertical_count > 2 * horizontal_count) mode = 2;
+  else if (horizontal_count > 10 && horizontal_count > 2 * vertical_count) mode = 3;
+  else mode = 1;
+
+  uint32_t mod_word = 0;
+  if (mode == 0) {
+#pragma unroll
+    for (int s = 0; s < 32; ++s) mod_word |= uint32_t(m[s] >> 1) << s;
+  } else {
+#pragma unroll
+    for (int s = 0; s < 32; ++s) {
+      const int py = s >> 3, px = s & 7;
+      if ((px ^ py) & 1) continue;  // checkerboard: stored pixels only
+      const int pos = 2 * (py * 4 + (px >> 1));
+      uint32_t bits = m[s];
+      if (pos == 0) bits = mode == 1 ? (bits & 2) : (bits | 1);
+      if (pos == 20) bits = mode == 2 ? (bits | 1) : (bits & 2);
+      mod_word |= bits << pos;
+    }
+  }
+
+  const uint2 c = ab[n];
+  const int ar = chan(c.x, 0), ag = chan(c.x, 1), ab_ = chan(c.x, 2),
+            aa = chan(c.x, 3);
+  const int br = chan(c.y, 0), bg = chan(c.y, 1), bb = chan(c.y, 2),
+            ba = chan(c.y, 3);
+  uint32_t color = aa == 255
+      ? (1u << 15) | (uint32_t(ab_ >> 4) << 1) | (uint32_t(ag >> 3) << 5) |
+            (uint32_t(ar >> 3) << 10)
+      : (uint32_t(ab_ >> 5) << 1) | (uint32_t(ag >> 4) << 4) |
+            (uint32_t(ar >> 4) << 8) | (uint32_t(aa >> 5) << 12);
+  color |= ba == 255
+      ? (1u << 31) | (uint32_t(bb >> 3) << 16) | (uint32_t(bg >> 3) << 21) |
+            (uint32_t(br >> 3) << 26)
+      : (uint32_t(bb >> 4) << 16) | (uint32_t(bg >> 4) << 20) |
+            (uint32_t(br >> 4) << 24) | (uint32_t(ba >> 5) << 28);
+  color |= mode != 0 ? 1u : 0u;
+
+  const uint32_t slot = spread_bits(by) | (spread_bits(bx) << 1);
+  out[first + slot] = make_uint2(mod_word, color);
+}
+
+inline int grid_for(long long n) { return int((n + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" {
+
+int texcomp_pvrtc_morph(const void* img, int nby, int nbx, const void* origin,
+                        void* ab, void* stream) {
+  morph_kernel<false><<<grid_for((long long)nby * nbx), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(img), 1, nby, nbx,
+      static_cast<const uint32_t*>(origin), static_cast<uint2*>(ab));
+  return int(cudaGetLastError());
+}
+
+int texcomp_pvrtc_morph_batched(const void* img, int batch, int nby, int nbx,
+                                void* ab, void* stream) {
+  morph_kernel<true><<<grid_for((long long)batch * nby * nbx), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(img), batch, nby, nbx, nullptr,
+      static_cast<uint2*>(ab));
+  return int(cudaGetLastError());
+}
+
+int texcomp_pvrtc_upscale_modulate(const void* img, const void* ab, int batch,
+                                   int nby, int nbx, void* mod, void* stream) {
+  upscale_modulate_kernel<<<grid_for((long long)batch * nby * nbx), kThreads,
+                            0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(img), static_cast<const uint2*>(ab), batch,
+      nby, nbx, static_cast<uint4*>(mod));
+  return int(cudaGetLastError());
+}
+
+int texcomp_pvrtc_modes_pack(const void* mod, const void* ab, int batch,
+                             int nby, int nbx, void* out, void* stream) {
+  modes_pack_kernel<<<grid_for((long long)batch * nby * nbx), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mod), static_cast<const uint2*>(ab), batch,
+      nby, nbx, static_cast<uint2*>(out));
+  return int(cudaGetLastError());
+}
+
+}  // extern "C"

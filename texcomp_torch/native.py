@@ -1,8 +1,8 @@
 """Host-side block-grid byte movement (numpy).
 
 The byte shuffles of the compressed-domain operations: assembling a padded
-block grid, copying a block sub-rectangle, replicating a solid block, and
-copying rows between strided buffers.
+block grid, copying a block sub-rectangle, replicating a solid block,
+copying rows between strided buffers, and the PVRTC Z-order permutation.
 """
 
 from __future__ import annotations
@@ -52,3 +52,17 @@ def strided_copy_rows(src: np.ndarray, rows: int, row_bytes: int,
         dst[r * dst_stride : r * dst_stride + row_bytes] = src[
             r * src_stride : r * src_stride + row_bytes]
     return dst
+
+
+def zorder_perm(nbx: int, nby: int) -> np.ndarray:
+    """Z-order block permutation (FromZOrder, pvrtc_compressor.cc:80-86):
+    perm[i] is the row-major block index of Z-order slot i, where x takes
+    the odd bits of i and y the even bits. (nbx * nby,) int32."""
+    n = nbx * nby
+    i = np.arange(n, dtype=np.uint64)
+    x = np.zeros(n, dtype=np.uint64)
+    y = np.zeros(n, dtype=np.uint64)
+    for j in range(16):
+        x |= ((i >> np.uint64(j * 2 + 1)) & np.uint64(1)) << np.uint64(j)
+        y |= ((i >> np.uint64(j * 2)) & np.uint64(1)) << np.uint64(j)
+    return (y * nbx + x).astype(np.int32)

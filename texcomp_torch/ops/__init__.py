@@ -5,7 +5,8 @@ packed blocks, blocks back to an image, or one mip level's blocks to the
 next level's, on the tensor's own device: the CUDA kernels for a CUDA
 tensor, their plain PyTorch twins for a CPU tensor (``dxt_cuda`` for
 DXT1/DXT5, ``etc_cuda`` for ETC1 and the transcoder, ``mipmap`` for
-chains). The decode result is an (H, W, 4) image on every device.
+chains, ``pvrtc_cuda`` for PVRTC 2bpp). The decode result is an (H, W, 4)
+image on every device.
 """
 
 from __future__ import annotations

@@ -42,6 +42,11 @@ SIGNATURES = {
     "texcomp_etc1_encode": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "texcomp_etc1_decode": [_P, _I, _I, _P, _P],
     "texcomp_etc1_downsample": [_P, _I, _I, _P, _I, _P],
+    # csrc/pvrtc.cu
+    "texcomp_pvrtc_morph": [_P, _I, _I, _P, _P, _P],
+    "texcomp_pvrtc_morph_batched": [_P, _I, _I, _I, _P, _P],
+    "texcomp_pvrtc_upscale_modulate": [_P, _P, _I, _I, _I, _P, _P],
+    "texcomp_pvrtc_modes_pack": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

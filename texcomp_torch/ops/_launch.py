@@ -16,7 +16,9 @@ from texcomp_torch.ops import _build
 #: adds one where it launches its kernel, and nowhere else.
 LAUNCHES = {"dxt1_encode": 0, "dxt5_encode": 0, "dxt1_decode": 0,
             "dxt5_decode": 0, "dxt1_downsample": 0, "dxt5_downsample": 0,
-            "etc1_encode": 0, "etc1_decode": 0, "etc1_downsample": 0}
+            "etc1_encode": 0, "etc1_decode": 0, "etc1_downsample": 0,
+            "pvrtc_morph": 0, "pvrtc_morph_batched": 0,
+            "pvrtc_upscale_modulate": 0, "pvrtc_modes_pack": 0}
 
 
 def reset_launches() -> None:
@@ -24,13 +26,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def check(t: torch.Tensor, name: str, shape_ok: bool, align: int) -> None:
-    """Raise unless ``t`` is a contiguous, ``align``-byte aligned uint8
-    CUDA tensor of a shape the kernel takes."""
+def check(t: torch.Tensor, name: str, shape_ok: bool, align: int,
+          dtype: torch.dtype = torch.uint8) -> None:
+    """Raise unless ``t`` is a contiguous, ``align``-byte aligned CUDA
+    tensor of ``dtype`` and of a shape the kernel takes."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.uint8:
-        raise TypeError(f"{name}: expected uint8, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if not shape_ok:
         raise ValueError(f"{name}: unsupported shape {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % align:
