@@ -12,9 +12,10 @@ line is printed:
                 power limit.
   2. build      the CUDA kernels of texcomp_torch/csrc, built with nvcc
                 (one nvcc per source file, all at once).
-  3. kernels    each of the thirteen kernels against its plain PyTorch twin
+  3. kernels    each of the fifteen kernels against its plain PyTorch twin
                 on the card at 4096x4096 (1,048,576 4x4 blocks, 524,288
-                PVRTC 8x4 blocks), bytes equal:
+                PVRTC 8x4 blocks; the two HQ kernels at 1024x1024, the size
+                of bench.py's HQ cells), bytes equal:
                 DXT1/DXT5 encode of solid and near-solid regions, alpha
                 bands, both swap values, always4 and a ragged 4087x4083
                 image on a 4096x4096 grid; DXT/ETC1 decode of random block
@@ -26,15 +27,22 @@ line is printed:
                 modulate and mode + pack of random pixels, all-zero and
                 zero-alpha blocks, opaque and translucent and flat tiles;
                 the batched morph, upscale + modulate and mode + pack of a
-                fleet of 192 images of 512x512 and of 1024 of 64x64. Then
-                each kernel's CUDA-event median time against its twin's,
-                and its bound.
+                fleet of 192 images of 512x512 and of 1024 of 64x64; the
+                HQ cluster-fit top 4 (its float payload compared bit for
+                bit) of the 1024x1024 test image's blocks, of solid, tied,
+                2-value and split blocks, and of random prefix sums; the
+                ETC1 HQ search of both flips of the same blocks. Then each
+                kernel's CUDA-event median time against its twin's, and
+                its bound.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
                 equal to tests/golden/expected.json, and the 3 self-pinned
                 PVRTC extension cases (4bpp encode + decode, the 2bpp
-                decode) equal to tests/golden/extensions.json.
+                decode) equal to tests/golden/extensions.json, and the 11
+                self-pinned quality="high" cases (DXTC in 4 formats at
+                24x36 and 57x33, ETC1 at 28x20, the transcode at 24x16, a
+                DXT5 downsample at 32x48) equal to tests/golden/hq_torch.json.
   5. main path  at 4096x4096, each path with the launch counts set to 0
                 just before it and read just after, every result byte-equal
                 to the plain path on the card:
@@ -51,8 +59,18 @@ line is printed:
                   pvrtc_encode_batched x3 of the 192 x 512x512 fleet;
                   Pvrtc4bppCompressor compress -> decompress at 1024x1024
                   (plain PyTorch on the card, against the CPU).
+                Then quality="high" at 1024x1024, each result byte-equal to
+                the same path with every kernel wrapper replaced by its
+                plain twin on the card:
+                  DxtcCompressor("high") compress of an RGB, an RGBA and a
+                  BGR image; EtcCompressor(quality="high") compress;
+                  transcode_dxt1_to_etc1(quality="high") of the DXT1
+                  payload; DxtcCompressor("high").downsample_chain of the
+                  RGBA payload (10 levels, level by level).
                 Every kernel must be launched by the paths that use it.
-                Then the stage split of one 4096x4096 PVRTC compress().
+                Then the stage split of one 4096x4096 PVRTC compress(),
+                and the device time of one 1024x1024 HQ DXT1 and ETC1
+                compress under torch.profiler.
 
 Before the last line it prints one JSON line with each kernel's launches
 in phase 5, its largest difference from its twin, its time, its twin's
@@ -63,6 +81,7 @@ gives them. The last line is
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import statistics
@@ -85,9 +104,16 @@ from texcomp_torch import (
     transcode_dxt1_to_etc1,
 )
 from texcomp_torch.api import helper4x4 as h4
-from texcomp_torch.blocks import full_outside_mask
-from texcomp_torch.codecs import etc
-from texcomp_torch.ops import _build, _launch, dxt_cuda, etc_cuda, pvrtc_cuda
+from texcomp_torch.blocks import full_outside_mask, image_to_blocks
+from texcomp_torch.codecs import dxt_hq, etc
+from texcomp_torch.ops import (
+    _build,
+    _launch,
+    dxt_cuda,
+    dxt_hq_cuda,
+    etc_cuda,
+    pvrtc_cuda,
+)
 from texcomp_torch.ops.mipmap import num_chain_levels
 from texcomp_torch.utils.profiling import cuda_time_ms
 
@@ -97,6 +123,10 @@ PIXELS = SIZE * SIZE
 DXT_SRC = "texcomp_torch/csrc/dxt.cu"
 ETC_SRC = "texcomp_torch/csrc/etc.cu"
 PVRTC_SRC = "texcomp_torch/csrc/pvrtc.cu"
+DXT_HQ_SRC = "texcomp_torch/csrc/dxt_hq.cu"
+#: The quality="high" paths run at bench.py's HQ size (bench_dxt1_hq_encode,
+#: bench_etc1_hq_encode).
+HQ_SIZE = 1024
 #: The 512x512 group of bench.py's fleet distribution (_FLEET_DIST), and
 #: its 64x64 group.
 FLEET = (192, 512)
@@ -136,6 +166,12 @@ KERNELS = {
     "pvrtc_modes_pack": ("texcomp/ops/pvrtc_fast.py:453", PVRTC_SRC,  # _mpc_kernel
                          pvrtc_cuda.pvrtc_modes_pack_plain,
                          pvrtc_cuda.pvrtc_modes_pack_cuda),
+    "dxt_hq_cluster_topk4": ("texcomp/ops/dxt_pallas.py:917", DXT_HQ_SRC,  # _cf_topk_kernel
+                             dxt_hq_cuda.cluster_topk4_plain,
+                             dxt_hq_cuda.cluster_topk4_cuda),
+    "etc1_hq_search": ("texcomp/ops/etc_pallas.py:672", ETC_SRC,  # _etc1_hq_kernel
+                       etc_cuda.etc1_hq_search_plain,
+                       etc_cuda.etc1_hq_search_cuda),
 }
 
 # ---------------------------------------------------------------------------
@@ -189,6 +225,17 @@ _PVRTC_MORPH_OPS = 32 * 50 + 5 * 35 + 25 + 76 + 20
 _PVRTC_UPMOD_OPS = 32 * (8 + 64 + 32 + 48 + 8) + 126
 _PVRTC_PACK_OPS = 64 + 32 * 10 + 72
 _PVRTC_PACK_1BPP_OPS, _PVRTC_PACK_2BPP_OPS = 96, 52
+# HQ cluster-fit top 4, per partition: 3 to scale the cuts, 6 adds for u,
+# 10 for A and B, 17 for each of the two split terms (a conversion, two
+# bf16 roundings of 5, a subtract, 3 multiplies, 2 adds), 5 for the third
+# (its split is the block's), 2 adds and the insertion test: 60. Per block
+# 100 for the prefix sums, T and the payloads.
+_CF_PARTITION_OPS, _CF_BLOCK_OPS = 60, 100
+# ETC1 HQ search, per block: each step is a flip's exhaustive search
+# (_ETC_FLIP_SEARCH; unpacking the candidate replaces the averages), a
+# refit 2 x 174 (8 modifiers looked up and subtracted, 3 rounded means,
+# quantized and packed), a probe 15.
+_ETC_HQ_REFIT_OPS, _ETC_HQ_PROBE_OPS = 348, 15
 
 
 def _nbytes(*tensors) -> int:
@@ -204,15 +251,16 @@ def _pvrtc_pack_ops(out: torch.Tensor) -> int:
             + (n - n1) * _PVRTC_PACK_2BPP_OPS)
 
 
-def kernel_work(name: str, args: tuple, out: torch.Tensor):
+def kernel_work(name: str, args: tuple, out):
     """(bytes, operations) of one call: each input read once, each output
     written once, and the operations this call's blocks need."""
     data = args[0]
-    nbytes = _nbytes(*(a for a in args if isinstance(a, torch.Tensor)), out)
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = _nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *outs)
     if name in ("dxt1_encode", "dxt5_encode", "dxt1_downsample",
                 "dxt5_downsample"):
         nbytes += 256 * 8  # the const-color table
-    n_out = out.shape[0] if out.dim() == 2 else out.numel() // 64
+    n_out = outs[0].shape[0] if outs[0].dim() == 2 else outs[0].numel() // 64
     n_in = data.shape[0]
     per_block = {
         "dxt1_encode": _DXT1_ENCODE_OPS, "dxt5_encode": _DXT5_ENCODE_OPS,
@@ -220,7 +268,14 @@ def kernel_work(name: str, args: tuple, out: torch.Tensor):
         "dxt1_downsample": _DXT1_DOWN_OPS, "dxt5_downsample": _DXT5_DOWN_OPS,
         "etc1_decode": _ETC_DECODE_OPS,
     }
-    if name in ("pvrtc_morph", "pvrtc_morph_batched"):
+    if name == "dxt_hq_cluster_topk4":
+        ops = n_in * (args[1].shape[0] * _CF_PARTITION_OPS + _CF_BLOCK_OPS)
+    elif name == "etc1_hq_search":
+        steps = args[1].shape[0] + etc.HQ_REFITS + etc.HQ_PROBES
+        ops = n_in * (steps * _ETC_FLIP_SEARCH
+                      + etc.HQ_REFITS * _ETC_HQ_REFIT_OPS
+                      + etc.HQ_PROBES * _ETC_HQ_PROBE_OPS)
+    elif name in ("pvrtc_morph", "pvrtc_morph_batched"):
         ops = out.shape[0] * _PVRTC_MORPH_OPS
     elif name == "pvrtc_upscale_modulate":
         ops = out.shape[0] * _PVRTC_UPMOD_OPS
@@ -285,21 +340,22 @@ def make_image(seed: int, h: int, w: int, c: int) -> np.ndarray:
     return img.astype(np.uint8)
 
 
-def golden_compressor(case: dict, device):
+def golden_compressor(case: dict, device, quality: str = "reference"):
     """The compressor a golden case runs through."""
     if case["codec"] == "etc":
         return EtcCompressor(CompressionStrategy(case["strategy"]),
-                             device=device)
+                             quality=quality, device=device)
     if case["codec"] == "pvrtc":
         return PvrtcCompressor(device=device)
-    return DxtcCompressor(device=device)
+    return DxtcCompressor(quality, device=device)
 
 
-def golden_outputs(case: dict, gv, device) -> dict:
+def golden_outputs(case: dict, gv, device, quality: str = "reference") -> dict:
     """The digests of one golden case (``gv`` is tests/golden_vectors.py)
     through the port on ``device``, keyed as in
-    tests/golden/expected.json."""
-    comp = golden_compressor(case, device)
+    tests/golden/expected.json. With ``quality="high"`` every encode is
+    HQ; a transcode case still starts from the reference DXT1 payload."""
+    comp = golden_compressor(case, device, quality)
     fmt = Format(case["fmt"])
     h, w = case["h"], case["w"]
     kind = case["kind"]
@@ -311,6 +367,8 @@ def golden_outputs(case: dict, gv, device) -> dict:
         return {"out": gv.digest(ci.get_data())}
     img = gv.golden_image(case["seed"], h, w, case["comps"])
     ci = CompressedImage()
+    if kind == "transcode":
+        comp = DxtcCompressor(device=device)
     _require(comp.compress(fmt, h, w, 0, img.tobytes(), ci), "compress")
     out = CompressedImage()
     if kind == "encode":
@@ -320,7 +378,7 @@ def golden_outputs(case: dict, gv, device) -> dict:
         _require(comp.decompress(ci, buf), "decompress")
         return {"out": gv.digest(ci.get_data()), "decoded": gv.digest(bytes(buf))}
     if kind == "transcode":
-        transcode_dxt1_to_etc1(ci, device=device)
+        transcode_dxt1_to_etc1(ci, quality, device=device)
         return {"out": gv.digest(ci.get_data())}
     if kind == "downsample":
         _require(comp.downsample(ci, out), "downsample")
@@ -358,6 +416,23 @@ def extension_golden_outputs(case: dict, gv, device) -> dict:
     else:
         raise ValueError(f"unknown extension kind {case['kind']!r}")
     return {"out": gv.digest(ci.get_data()), "decoded": gv.digest(bytes(buf))}
+
+
+#: The self-pinned quality="high" cases of tests/golden/hq_torch.json: the
+#: digests texcomp gives on the CPU through :func:`golden_outputs`' steps
+#: with quality="high" (tests/test_torch_golden.py checks texcomp still
+#: gives them, and writes the file).
+HQ_CASES = (
+    [dict(name=f"hq_enc_dxtc_f{fmt}_{h}x{w}", kind="encode", codec="dxtc",
+          fmt=fmt, comps=3 if fmt < 2 else 4, h=h, w=w, seed=h * 1000 + w,
+          strategy=2)
+     for fmt in range(4) for h, w in ((24, 36), (57, 33))]
+    + [dict(name="hq_enc_etc_28x20", kind="encode", codec="etc", fmt=0,
+            comps=3, h=28, w=20, seed=779, strategy=2),
+       dict(name="hq_transcode_24x16", kind="transcode", codec="dxtc", fmt=0,
+            comps=3, h=24, w=16, seed=11, strategy=2),
+       dict(name="hq_down_dxtc_f2_32x48", kind="downsample", codec="dxtc",
+            fmt=2, comps=4, h=32, w=48, seed=5, strategy=2)])
 
 
 def dxtc_golden_cases(gv) -> list[dict]:
@@ -436,9 +511,53 @@ def pvrtc_images(rgba: torch.Tensor) -> dict:
             "small fleet": crops(small)[::4][:n_small].contiguous()}
 
 
-def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
+def special_blocks(m: int = 4096) -> torch.Tensor:
+    """(4m, 16, 3) int32 blocks on the card: m solid, m tied (p(y, x) ==
+    p(x, y), so both flips and many projections tie), m of two colours and
+    m split into a dark left and a bright right half (bases far outside the
+    ETC1 differential window)."""
+    g = torch.Generator(device="cuda").manual_seed(17)
+
+    def rand(*shape, lo=0, hi=256):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32,
+                             device="cuda")
+
+    solid = rand(m, 1, 3).expand(m, 16, 3)
+    base = rand(m, 4, 4, 3)
+    upper = torch.ones(4, 4, dtype=torch.bool, device="cuda").triu()
+    tied = torch.where(upper[None, :, :, None], base, base.transpose(1, 2))
+    two = torch.where(rand(m, 16, 1, hi=2) == 1, rand(m, 1, 3), rand(m, 1, 3))
+    left = (torch.arange(16, device="cuda") % 4 < 2)[None, :, None]
+    split = torch.where(left, rand(m, 1, 3, hi=48), rand(m, 1, 3, lo=208))
+    return torch.cat([solid, tied.reshape(m, 16, 3), two, split])
+
+
+def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
+    """The two HQ kernels' cases, at the inputs the HQ encoders give them:
+    the prefix sums and the candidate words of the 1024^2 test image's
+    blocks and of :func:`special_blocks`, and random prefix sums."""
+    cuts, qtab = dxt_hq._cf_device_tables(torch.device("cuda"))
+    sets = {"image": image_to_blocks(rgb_hq), "special": special_blocks()}
+    g = torch.Generator(device="cuda").manual_seed(19)
+    random_prefix = torch.randint(0, 4081, (65536, 17, 3), generator=g,
+                                  dtype=torch.int32, device="cuda")
+    topk4, search = [], []
+    for label, blocks in sets.items():
+        prefix = dxt_hq._prefix_sums(blocks, dxt_hq._pca_project(blocks)[2])
+        topk4.append((label, (prefix, cuts, qtab)))
+        pixels = etc_cuda.pack_pixels(blocks)
+        for flip in (False, True):
+            search.append((f"{label} flip {int(flip)}",
+                           (pixels, etc.hq_candidate_words(blocks, flip), flip)))
+    topk4.append(("random prefix sums", (random_prefix, cuts, qtab)))
+    return {"dxt_hq_cluster_topk4": topk4, "etc1_hq_search": search}
+
+
+def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
+                 rgb_hq: torch.Tensor) -> dict:
     """kernel name -> [(label, args)]; the first case of each is timed.
-    ``pv`` holds the PVRTC inputs (:func:`pvrtc_images`)."""
+    ``pv`` holds the PVRTC inputs (:func:`pvrtc_images`), ``rgb_hq`` the
+    1024^2 image of the HQ kernels."""
     g = torch.Generator().manual_seed(7)
     rand8 = torch.randint(0, 256, (PIXELS // 16, 8), generator=g,
                           dtype=torch.uint8).cuda()
@@ -504,6 +623,7 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
         "etc1_downsample": [
             (f"encoded s{s}", (etc_payload, nb, nb, s)) for s in strategies],
         **pvrtc_kernel_cases(pv),
+        **hq_kernel_cases(rgb_hq),
     }
 
 
@@ -558,9 +678,28 @@ def _unfused_level(name: str, args: tuple):
         dxt_cuda.dxt5_decode_cuda(data, h, w)), h // 2, w // 2)
 
 
-def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
+def _difference(got, want) -> float:
+    """The largest absolute difference of two outputs (a tensor or a tuple
+    of them): -1 on a shape mismatch, inf where float bits differ (the
+    cluster-fit payload must equal its twin's bit for bit)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            return -1
+        if a.is_floating_point():
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                return float("inf")
+        elif a.numel():
+            worst = max(worst, int((a.long() - b.long()).abs().max()))
+    return worst
+
+
+def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
+                  rgb_hq: torch.Tensor) -> dict:
     """Kernel vs plain on the card; returns per-kernel results."""
-    cases = kernel_cases(rgb, rgba, pv)
+    cases = kernel_cases(rgb, rgba, pv, rgb_hq)
     results = {}
     for name, (replaces, source, plain, kernel) in KERNELS.items():
         worst = 0
@@ -568,13 +707,11 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
             got = kernel(*args)
             want = plain(*args)
             torch.cuda.synchronize()
-            err = (int((got.int() - want.int()).abs().max())
-                   if got.shape == want.shape else -1)
+            err = _difference(got, want)
             worst = max(worst, err)
             if err != 0:
                 fail(f"{name} [{label}] differs from its plain twin: "
-                     f"shapes {tuple(got.shape)} vs {tuple(want.shape)}, "
-                     f"max abs err {err}")
+                     f"max abs err {err} (-1: shapes differ, inf: float bits)")
         timed = cases[name][0][1]
         out = kernel(*timed)
         ms = cuda_time_ms(lambda: kernel(*timed), repeats=20)
@@ -607,6 +744,15 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict) -> dict:
             if per:
                 print(f"[kernels] {name} on the fleets: {'; '.join(per)}",
                       flush=True)
+        if name.startswith(("dxt_hq", "etc1_hq")):
+            # The other inputs' times beside the timed case's.
+            per = []
+            for label, args in cases[name][1:]:
+                t = cuda_time_ms(lambda: kernel(*args), repeats=20)
+                b_ms, b_by = bound(*kernel_work(name, args, kernel(*args)))
+                per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
+            print(f"[kernels] {name} on its other inputs: {'; '.join(per)}",
+                  flush=True)
         if name in ("etc1_encode", "etc1_downsample"):
             # Every strategy's time: the search differs by strategy.
             per = []
@@ -632,10 +778,15 @@ def phase_golden(gv) -> None:
         got = extension_golden_outputs(case, gv, "cuda")
         if got != ext_expected[case["name"]]:
             fail(f"golden {case['name']}: {got} != {ext_expected[case['name']]}")
+    hq_expected = json.loads((golden / "hq_torch.json").read_text())
+    for case in HQ_CASES:
+        got = golden_outputs(case, gv, "cuda", "high")
+        if got != hq_expected[case["name"]]:
+            fail(f"golden {case['name']}: {got} != {hq_expected[case['name']]}")
     print(f"[golden] {len(cases)} reference-mode golden digests "
-          f"({len(dxtc_golden_cases(gv))} DXTC, ETC1, transcode, PVRTC) and "
-          f"{len(gv.EXT_CASES)} PVRTC extension digests equal on cuda",
-          flush=True)
+          f"({len(dxtc_golden_cases(gv))} DXTC, ETC1, transcode, PVRTC), "
+          f"{len(gv.EXT_CASES)} PVRTC extension digests and {len(HQ_CASES)} "
+          f'quality="high" digests equal on cuda', flush=True)
 
 
 class Launches:
@@ -901,6 +1052,94 @@ def main_pvrtc(pv: dict, launches: Launches, gpu: str) -> np.ndarray:
     return img
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain twin, so that a path runs
+    plain PyTorch on the card: the reference the HQ paths are held to."""
+    saved = []
+    for _, _, plain, kernel in KERNELS.values():
+        module = sys.modules[kernel.__module__]
+        saved.append((module, kernel.__name__, getattr(module, kernel.__name__)))
+        setattr(module, kernel.__name__, plain)
+    try:
+        yield
+    finally:
+        for module, attr, fn in reversed(saved):
+            setattr(module, attr, fn)
+
+
+def main_hq(images: dict, launches: Launches, gpu: str) -> None:
+    """quality="high" at 1024^2 on cuda: DXTC compress of RGB, RGBA and BGR,
+    ETC1 compress, the HQ transcode of the DXT1 payload and the DXT5 HQ
+    mip chain, each byte-equal to the same path on the plain twins."""
+    side = HQ_SIZE
+
+    def compress(comp, fmt):
+        def run():
+            ci = CompressedImage()
+            _require(comp.compress(fmt, side, side, 0, images[fmt], ci),
+                     "compress")
+            return ci
+        return run
+
+    def transcode(src):
+        def run():
+            ci = CompressedImage()
+            ci.duplicate(src)
+            transcode_dxt1_to_etc1(ci, "high", device="cuda")
+            return ci
+        return run
+
+    dxt1_src = CompressedImage()
+    _require(DxtcCompressor(device="cuda").compress(
+        Format.RGB, side, side, 0, images[Format.RGB], dxt1_src), "compress")
+    hq = DxtcCompressor("high", device="cuda")
+    jobs = [
+        ('DxtcCompressor("high") RGB compress', compress(hq, Format.RGB),
+         ("dxt_hq_cluster_topk4", "dxt1_encode")),
+        ('DxtcCompressor("high") RGBA compress', compress(hq, Format.RGBA),
+         ("dxt_hq_cluster_topk4", "dxt5_encode")),
+        ('DxtcCompressor("high") BGR compress', compress(hq, Format.BGR),
+         ("dxt_hq_cluster_topk4", "dxt1_encode")),
+        ('EtcCompressor(quality="high") compress',
+         compress(EtcCompressor(quality="high", device="cuda"), Format.RGB),
+         ("etc1_hq_search",)),
+        ('transcode_dxt1_to_etc1(quality="high")', transcode(dxt1_src),
+         ("dxt1_decode", "etc1_hq_search")),
+    ]
+    payloads = {}
+    for what, run, kernels in jobs:
+        ci, times = launches.run(what, kernels, lambda: _timed(run, 2))
+        with plain_kernels():
+            want, plain_times = _timed(run, 1)
+        if (ci.get_metadata() != want.get_metadata()
+                or not np.array_equal(ci.get_data(), want.get_data())):
+            fail(f"{what} differs from the plain path on the card")
+        payloads[what] = ci
+        print(f"[main] {what} {side}x{side} on {gpu}: equal to plain; wall "
+              f"{statistics.median(times) * 1e3:.1f} ms (median of "
+              f"{len(times)}, first {times[0] * 1e3:.1f}), plain twins "
+              f"{plain_times[0] * 1e3:.1f} ms", flush=True)
+
+    src = payloads['DxtcCompressor("high") RGBA compress']
+    chain, times = launches.run(
+        'DxtcCompressor("high") RGBA downsample_chain',
+        ("dxt5_decode", "dxt_hq_cluster_topk4", "dxt5_encode"),
+        lambda: _timed(lambda: hq.downsample_chain(src), 1))
+    with plain_kernels():
+        want = hq.downsample_chain(src)
+    levels = side.bit_length() - 1
+    if len(chain) != levels or len(want) != levels:
+        fail(f"HQ chain: {len(chain)} levels, plain {len(want)}, want {levels}")
+    for lvl, (got, ref) in enumerate(zip(chain, want), 1):
+        if (got.get_metadata() != ref.get_metadata()
+                or not np.array_equal(got.get_data(), ref.get_data())):
+            fail(f"HQ chain level {lvl} differs from the plain path")
+    print(f"[main] DxtcCompressor(\"high\") RGBA downsample_chain {side}x{side} "
+          f"-> 1x1 on {gpu}: {levels} levels level by level, each equal to "
+          f"plain; wall {times[0] * 1e3:.1f} ms", flush=True)
+
+
 def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 5) -> None:
     """Where a 4096^2 PvrtcCompressor.compress() spends its time: the steps
     it takes, on the host clock, synchronised after each device step."""
@@ -937,18 +1176,64 @@ def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 5) -> None:
           flush=True)
 
 
-def phase_main_path(images: dict, pv: dict, gpu: str) -> dict:
-    """The main paths at 4096^2; returns the launch counts, summed."""
+def hq_device_split(images: dict, gpu: str) -> None:
+    """Where one 1024^2 HQ compress spends its time, under torch.profiler:
+    its wall against the device time of the kernels it ran (the two HQ
+    kernels apart) and of its copies, the number of kernels, and the
+    device's idle share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    side = HQ_SIZE
+    jobs = (("DXT1", DxtcCompressor("high", device="cuda"), "cluster_topk4"),
+            ("ETC1", EtcCompressor(quality="high", device="cuda"),
+             "hq_search_kernel"))
+    for what, comp, hq_kernel in jobs:
+        def run():
+            ci = CompressedImage()
+            _require(comp.compress(Format.RGB, side, side, 0,
+                                   images[Format.RGB], ci), "compress")
+
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        is_copy = [e.name.startswith(("Memcpy", "Memset")) for e in on_device]
+        copies = [e for e, c in zip(on_device, is_copy) if c]
+        kernels = [e for e, c in zip(on_device, is_copy) if not c]
+        ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3
+        hq = [e for e in kernels if hq_kernel in e.name]
+        busy = ms(kernels) + ms(copies)
+        print(f"[main] {what} quality=\"high\" compress {side}x{side} on {gpu} "
+              f"under torch.profiler: wall {wall:.1f} ms; {len(kernels)} "
+              f"kernels {ms(kernels):.3f} ms, of them {len(hq)} {hq_kernel} "
+              f"{ms(hq):.3f} ms; copies {ms(copies):.3f} ms; device idle "
+              f"{100 * (1 - busy / wall):.1f}% of the wall" if on_device else
+              f"[main] {what} HQ compress: torch.profiler saw no device "
+              "events; device time not measured", flush=True)
+
+
+def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
+    """The main paths at 4096^2, and quality="high" at 1024^2; returns the
+    launch counts, summed."""
     launches = Launches()
     payloads = main_round_trips(images, launches, gpu)
     main_chains(payloads, launches, gpu)
     main_transcode(payloads, launches, gpu)
     pvrtc_img = main_pvrtc(pv, launches, gpu)
+    main_hq(hq_images, launches, gpu)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)
     pvrtc_stage_split(pvrtc_img, gpu)
+    hq_device_split(hq_images, gpu)
     return launches.total
 
 
@@ -960,10 +1245,14 @@ def main() -> int:
     rgba_np = make_image(2, SIZE, SIZE, 4)
     rgba = torch.from_numpy(rgba_np).cuda()
     pv = pvrtc_images(rgba)
-    kernels = phase_kernels(torch.from_numpy(rgb_np).cuda(), rgba, pv)
+    hq_images = {Format.RGB: make_image(3, HQ_SIZE, HQ_SIZE, 3),
+                 Format.RGBA: make_image(4, HQ_SIZE, HQ_SIZE, 4)}
+    hq_images[Format.BGR] = np.ascontiguousarray(hq_images[Format.RGB][..., ::-1])
+    kernels = phase_kernels(torch.from_numpy(rgb_np).cuda(), rgba, pv,
+                            torch.from_numpy(hq_images[Format.RGB]).cuda())
     phase_golden(gv)
     launches = phase_main_path({Format.RGB: rgb_np, Format.RGBA: rgba_np}, pv,
-                               gpu)
+                               hq_images, gpu)
 
     report = [{"name": name, "route": "cuda", "source": r["source"],
                "replaces": r["replaces"], "launches": launches[name],

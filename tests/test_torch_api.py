@@ -248,8 +248,22 @@ def test_signatures_name_every_entry_point():
     assert entries == set(_build.SIGNATURES)
 
 
-def test_quality_high_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texcomp_torch.DxtcCompressor("high", device="cpu")
+def test_quality_high_not_ported(rng):
+    """quality="high" raised NotImplementedError until the HQ DXTC slice;
+    now DxtcCompressor("high") compresses and builds its mip chain as
+    texcomp's does (PVRTC HQ is what stays unported,
+    test_torch_pvrtc_api.py). An unknown quality still raises."""
+    h, w = 16, 32
+    buf = _buffer(rng, h, w, 4, 0)
+    jc = texcomp.DxtcCompressor("high")
+    tc = texcomp_torch.DxtcCompressor("high", device="cpu")
+    ji, ti = texcomp.CompressedImage(), texcomp_torch.CompressedImage()
+    assert jc.compress(texcomp.Format.RGBA, h, w, 0, buf, ji)
+    assert tc.compress(texcomp_torch.Format.RGBA, h, w, 0, buf, ti)
+    _assert_same(ti, ji)
+    jchain, tchain = jc.downsample_chain(ji), tc.downsample_chain(ti)
+    assert len(tchain) == len(jchain) == 5
+    for jl, tl in zip(jchain, tchain):
+        _assert_same(tl, jl)
     with pytest.raises(ValueError):
         texcomp_torch.DxtcCompressor("best", device="cpu")

@@ -10,6 +10,8 @@ import torch
 
 import texcomp
 import texcomp_torch
+from texcomp_torch.codecs import dxt as tdxt
+from texcomp_torch.codecs import etc as tetc
 
 STRATEGIES = [0, 1, 2, 3]
 RGB = 0
@@ -217,13 +219,52 @@ def test_cuda_device_without_cuda_raises(rng):
         np.testing.assert_array_equal(ci.get_data(), before)
 
 
-def test_quality_high_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texcomp_torch.EtcCompressor(quality="high", device="cpu")
+def test_quality_high_not_ported(rng):
+    """quality="high" raised NotImplementedError until the HQ ETC1 slice;
+    now EtcCompressor(quality="high") compresses (ragged sizes too) and
+    builds its mip chain, and transcode_dxt1_to_etc1(quality="high")
+    rewrites the payload, as texcomp's do. An unknown quality still
+    raises."""
+    jc = texcomp.EtcCompressor(quality="high")
+    tc = texcomp_torch.EtcCompressor(quality="high", device="cpu")
+    for h, w in ((28, 20), (5, 3)):
+        buf = _buffer(rng, h, w, 0)
+        ji, ti = texcomp.CompressedImage(), texcomp_torch.CompressedImage()
+        assert jc.compress(texcomp.Format.RGB, h, w, 0, buf, ji)
+        assert tc.compress(texcomp_torch.Format.RGB, h, w, 0, buf, ti)
+        _assert_same(ti, ji)
+    h, w = 32, 16
+    buf = _buffer(rng, h, w, 0)
+    ji, ti = texcomp.CompressedImage(), texcomp_torch.CompressedImage()
+    assert jc.compress(texcomp.Format.RGB, h, w, 0, buf, ji)
+    assert tc.compress(texcomp_torch.Format.RGB, h, w, 0, buf, ti)
+    jchain, tchain = jc.downsample_chain(ji), tc.downsample_chain(ti)
+    assert len(tchain) == len(jchain) == 5
+    for jl, tl in zip(jchain, tchain):
+        _assert_same(tl, jl)
+
+    # The transcode: the reference DXT1 payload of the same image, HQ ETC1
+    # blocks out, no worse than the heuristic's against the DXT1 pixels.
+    dj, dt = texcomp.CompressedImage(), texcomp_torch.CompressedImage()
+    assert texcomp.DxtcCompressor().compress(texcomp.Format.RGB, h, w, 0, buf, dj)
+    assert texcomp_torch.DxtcCompressor(device="cpu").compress(
+        texcomp_torch.Format.RGB, h, w, 0, buf, dt)
+    pixels = tdxt.decode_dxt1_blocks(
+        torch.from_numpy(dt.get_data().reshape(-1, 8).copy())).numpy()
+    ref = texcomp_torch.CompressedImage()
+    ref.duplicate(dt)
+    texcomp_torch.transcode_dxt1_to_etc1(ref, device="cpu")
+    texcomp.transcode_dxt1_to_etc1(dj, quality="high")
+    texcomp_torch.transcode_dxt1_to_etc1(dt, "high", device="cpu")
+    _assert_same(dt, dj)
+
+    def err(ci):
+        dec = tetc.decode_etc1_blocks(
+            torch.from_numpy(ci.get_data().reshape(-1, 8).copy())).numpy()
+        return ((dec.astype(np.int64) - pixels) ** 2).sum(axis=(1, 2))
+
+    assert np.all(err(dt) <= err(ref))
     with pytest.raises(ValueError):
         texcomp_torch.EtcCompressor(quality="best", device="cpu")
-    ci = texcomp_torch.CompressedImage()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        texcomp_torch.transcode_dxt1_to_etc1(ci, "high", device="cpu")
     with pytest.raises(ValueError):
-        texcomp_torch.transcode_dxt1_to_etc1(ci, "best", device="cpu")
+        texcomp_torch.transcode_dxt1_to_etc1(dt, "best", device="cpu")

@@ -5,14 +5,22 @@ The 32 reference-mode golden cases of tests/golden_vectors.py (21 DXTC,
 port on the CPU, with the same case runner that chip_smoke.py uses on the
 card; so do the 3 self-pinned PVRTC extension cases of
 tests/golden/extensions.json (4bpp encode + decode, the 2bpp decode).
+
+The 11 quality="high" cases of chip_smoke.HQ_CASES have no reference
+referent: tests/golden/hq_torch.json pins texcomp's CPU digests, which
+texcomp must still give and the port must equal (chip_smoke.py holds the
+card to them). ``python -m tests.test_torch_golden`` rewrites the file
+from texcomp.
 """
 
 import json
+import sys
 from pathlib import Path
 
 import pytest
 
 from chip_smoke import (
+    HQ_CASES,
     dxtc_golden_cases,
     extension_golden_outputs,
     golden_outputs,
@@ -23,6 +31,7 @@ from tests import golden_vectors
 _GOLDEN = Path(__file__).parent / "golden"
 _EXPECTED = json.loads((_GOLDEN / "expected.json").read_text())
 _EXT_EXPECTED = json.loads((_GOLDEN / "extensions.json").read_text())
+_HQ_FILE = _GOLDEN / "hq_torch.json"
 _CASES = dxtc_golden_cases(golden_vectors)
 _REFERENCE = reference_golden_cases(golden_vectors)
 _PVRTC = [c for c in _REFERENCE if c["codec"] == "pvrtc"]
@@ -74,3 +83,63 @@ def test_golden_pvrtc_extensions(case):
     """Self-pinned digests: the port's extension bytes equal texcomp's."""
     got = extension_golden_outputs(case, golden_vectors, "cpu")
     assert got == _EXT_EXPECTED[case["name"]]
+
+
+def texcomp_hq_outputs(case: dict) -> dict:
+    """One HQ case through texcomp on the CPU: golden_outputs' steps with
+    quality="high"."""
+    import texcomp
+
+    gv = golden_vectors
+    fmt = texcomp.Format(case["fmt"])
+    h, w = case["h"], case["w"]
+    img = gv.golden_image(case["seed"], h, w, case["comps"])
+    if case["codec"] == "etc":
+        comp = texcomp.EtcCompressor(quality="high")
+    else:
+        comp = texcomp.DxtcCompressor("high")
+    ci = texcomp.CompressedImage()
+    if case["kind"] == "transcode":
+        assert texcomp.DxtcCompressor().compress(fmt, h, w, 0, img.tobytes(), ci)
+        texcomp.transcode_dxt1_to_etc1(ci, quality="high")
+        return {"out": gv.digest(ci.get_data())}
+    assert comp.compress(fmt, h, w, 0, img.tobytes(), ci)
+    if case["kind"] == "encode":
+        buf = bytearray()
+        assert comp.decompress(ci, buf)
+        return {"out": gv.digest(ci.get_data()), "decoded": gv.digest(bytes(buf))}
+    out = texcomp.CompressedImage()
+    assert comp.downsample(ci, out)
+    return {"out": gv.digest(out.get_data())}
+
+
+def _hq_expected() -> dict:
+    return json.loads(_HQ_FILE.read_text())
+
+
+def test_eleven_hq_cases():
+    names = [c["name"] for c in HQ_CASES]
+    assert len(names) == len(set(names)) == 11
+    assert sorted(_hq_expected()) == sorted(names)
+
+
+@pytest.mark.parametrize("case", HQ_CASES, ids=lambda c: c["name"])
+def test_golden_hq_texcomp(case):
+    """texcomp still gives the pinned HQ digest."""
+    assert texcomp_hq_outputs(case) == _hq_expected()[case["name"]]
+
+
+@pytest.mark.parametrize("case", HQ_CASES, ids=lambda c: c["name"])
+def test_golden_hq_port(case):
+    """The port on the CPU gives the pinned HQ digest."""
+    got = golden_outputs(case, golden_vectors, "cpu", "high")
+    assert got == _hq_expected()[case["name"]]
+
+
+if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    digests = {c["name"]: texcomp_hq_outputs(c) for c in HQ_CASES}
+    _HQ_FILE.write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {len(digests)} digests to {_HQ_FILE}", file=sys.stderr)

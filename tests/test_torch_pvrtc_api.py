@@ -221,7 +221,7 @@ def test_cuda_device_without_cuda_raises(rng, codec):
 def test_quality_high_not_ported(codec):
     cls = (texcomp_torch.PvrtcCompressor if codec == "pvrtc"
            else texcomp_torch.Pvrtc4bppCompressor)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         cls(quality="high", device="cpu")
     with pytest.raises(ValueError):
         cls(quality="best", device="cpu")

@@ -34,7 +34,7 @@ def _check_quality(quality: str) -> None:
     if quality == "high":
         raise NotImplementedError(
             'quality="high" is not ported yet; see ROADMAP.md Queue 1 '
-            "item 10 (the HQ encoders)")
+            "item 11 (PVRTC HQ)")
     if quality != "reference":
         raise ValueError(f"unknown quality {quality!r}")
 

@@ -7,6 +7,12 @@ by the device of the tensor they are given: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. No path falls back
 from one to the other.
 
+The HQ search (``quality="high"``) takes (N, 16) int32 packed pixels
+(r | g << 8 | b << 16) and (K, 2, N) int32 packed candidate words
+(``codecs.etc.pack_q_word``), one flip per call, and returns the (hi, lo,
+err) of each block's winner; :func:`etc1_hq_encode_padded_image` and the
+HQ transcode run the whole HQ encode around it.
+
 Encode takes an (h, w, 3 | 4) uint8 image (a fourth channel is ignored)
 and a block grid at least that large; pixels beyond the image replicate
 its edge. Decode returns the (4 * block_rows, 4 * block_cols, 4) uint8
@@ -64,6 +70,21 @@ def etc1_downsample_plain(data: torch.Tensor, nby: int, nbx: int,
     return etc1_encode_plain(avg, h // 2, w // 2, strategy)
 
 
+def pack_pixels(rgb: torch.Tensor) -> torch.Tensor:
+    """(N, 16, 3) int blocks -> (N, 16) int32 packed pixels."""
+    rgb = rgb.to(torch.int32)
+    return (rgb[:, :, 0] | (rgb[:, :, 1] << 8) | (rgb[:, :, 2] << 16)).contiguous()
+
+
+def etc1_hq_search_plain(pixels: torch.Tensor, cands: torch.Tensor,
+                         flip: bool):
+    """(N, 16) int32 packed pixels, (K, 2, N) int32 candidate words ->
+    (hi, lo, err) (N,) int32: ``codecs.etc.hq_search``."""
+    rgb = torch.stack([pixels & 255, (pixels >> 8) & 255,
+                       (pixels >> 16) & 255], dim=-1)
+    return etc.hq_search(rgb, cands, flip)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers (CUDA tensors only).
 # ---------------------------------------------------------------------------
@@ -111,9 +132,49 @@ def etc1_downsample_cuda(data: torch.Tensor, nby: int, nbx: int,
     return out
 
 
+def etc1_hq_search_cuda(pixels: torch.Tensor, cands: torch.Tensor,
+                        flip: bool):
+    """Kernel version of :func:`etc1_hq_search_plain`."""
+    _check(pixels, "etc1_hq_search", pixels.dim() == 2
+           and pixels.shape[1] == 16, 4, torch.int32)
+    n = pixels.shape[0]
+    _check(cands, "etc1_hq_search", cands.dim() == 3
+           and tuple(cands.shape[1:]) == (2, n), 4, torch.int32)
+    out = torch.empty((3, n), dtype=torch.int32, device=pixels.device)
+    if n:
+        _launch("etc1_hq_search", pixels.device, "texcomp_etc1_hq_search",
+                pixels.data_ptr(), n, cands.data_ptr(), cands.shape[0],
+                int(flip), out.data_ptr())
+    return out[0], out[1], out[2]
+
+
 # ---------------------------------------------------------------------------
 # Image ops: dispatch by the tensor's device.
 # ---------------------------------------------------------------------------
+
+
+def etc1_hq_search(pixels: torch.Tensor, cands: torch.Tensor, flip: bool):
+    """One flip of the HQ search on the pixels' device."""
+    fn = _pick(pixels, etc1_hq_search_plain, etc1_hq_search_cuda)
+    return fn(pixels, cands, flip)
+
+
+def etc1_hq_encode_blocks(rgb: torch.Tensor) -> torch.Tensor:
+    """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks: candidates in
+    PyTorch, each flip's search by :func:`etc1_hq_search`."""
+    return etc.encode_etc1_hq_blocks(
+        rgb, search=lambda chunk, cands, flip: etc1_hq_search(
+            pack_pixels(chunk), cands, flip))
+
+
+def etc1_hq_encode_padded_image(image: torch.Tensor, grid_height: int,
+                                grid_width: int) -> torch.Tensor:
+    """The HQ compress route: the (h, w, 3|4) image, edge-padded to the
+    block grid, HQ-encoded. Returns (N, 8) uint8."""
+    h, w = image.shape[:2]
+    blocks = extract_blocks(image, height=h, width=w, grid_height=grid_height,
+                            grid_width=grid_width)[:, :, :3]
+    return etc1_hq_encode_blocks(blocks)
 
 
 def etc1_encode_padded_image(image: torch.Tensor, grid_height: int,
@@ -148,16 +209,20 @@ def etc1_downsample_encode(data: torch.Tensor, *, nby: int, nbx: int,
     return fn(data, nby, nbx, strategy)
 
 
-def transcode_dxt1_to_etc1_blocks(data: torch.Tensor) -> torch.Tensor:
+def transcode_dxt1_to_etc1_blocks(data: torch.Tensor,
+                                  quality: str = "reference") -> torch.Tensor:
     """(N, 8) uint8 DXT1 blocks -> (N, 8) uint8 ETC1 blocks in the same
     order (TranscodeDxt1ToEtc1, dxtc_to_etc_transcoder.cc:29-40): the DXT1
     decode over a 1 x N block row, then the ETC1 encode of that (4, 4N, 4)
-    image with the heuristic strategy."""
+    image with the heuristic strategy, or with the HQ search for
+    ``quality="high"``."""
     n = data.shape[0]
     if n == 0:
         return data.clone()
     decode = _pick(data, dxt_cuda.dxt1_decode_plain, dxt_cuda.dxt1_decode_cuda)
     image = decode(data, 4, 4 * n)
+    if quality == "high":
+        return etc1_hq_encode_padded_image(image, 4, 4 * n)
     encode = _pick(data, etc1_encode_plain, etc1_encode_cuda)
     return encode(image, 4, 4 * n, etc.HEURISTIC)
 
