@@ -30,10 +30,13 @@ line is printed:
                 fleet of 192 images of 512x512 and of 1024 of 64x64; the
                 HQ cluster-fit top 4 (its float payload compared bit for
                 bit) of the 1024x1024 test image's blocks, of solid, tied,
-                2-value and split blocks, and of random prefix sums; the
-                ETC1 HQ search of both flips of the same blocks. Then each
+                2-value and split blocks, of random prefix sums, with the
+                table cut to 4 and to 13 rows, and of 65,541 blocks; the
+                ETC1 HQ search of both flips of the same blocks, with 37
+                and with 1 candidate, and of 65,541 blocks. Then each
                 kernel's CUDA-event median time against its twin's, and
-                its bound.
+                its bound; for the two HQ kernels also their registers,
+                shared memory and resident CTAs per SM.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -82,6 +85,7 @@ gives them. The last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import importlib.util
 import json
 import statistics
@@ -535,22 +539,67 @@ def special_blocks(m: int = 4096) -> torch.Tensor:
 def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     """The two HQ kernels' cases, at the inputs the HQ encoders give them:
     the prefix sums and the candidate words of the 1024^2 test image's
-    blocks and of :func:`special_blocks`, and random prefix sums."""
+    blocks and of :func:`special_blocks`, and random prefix sums. Then the
+    cases that test how the kernels split the work: the cluster-fit table
+    cut to its first 4 and 13 rows (empty and short slices of the 8 warps),
+    65,541 blocks (a ragged last CTA) for both kernels, and 37 candidates
+    (a ragged last chunk of 8) and 1 candidate for the search."""
     cuts, qtab = dxt_hq._cf_device_tables(torch.device("cuda"))
     sets = {"image": image_to_blocks(rgb_hq), "special": special_blocks()}
     g = torch.Generator(device="cuda").manual_seed(19)
     random_prefix = torch.randint(0, 4081, (65536, 17, 3), generator=g,
                                   dtype=torch.int32, device="cuda")
     topk4, search = [], []
+    prefix, pixels, words = {}, {}, {}
     for label, blocks in sets.items():
-        prefix = dxt_hq._prefix_sums(blocks, dxt_hq._pca_project(blocks)[2])
-        topk4.append((label, (prefix, cuts, qtab)))
-        pixels = etc_cuda.pack_pixels(blocks)
+        prefix[label] = dxt_hq._prefix_sums(blocks,
+                                            dxt_hq._pca_project(blocks)[2])
+        topk4.append((label, (prefix[label], cuts, qtab)))
+        pixels[label] = etc_cuda.pack_pixels(blocks)
         for flip in (False, True):
+            words[label, flip] = etc.hq_candidate_words(blocks, flip)
             search.append((f"{label} flip {int(flip)}",
-                           (pixels, etc.hq_candidate_words(blocks, flip), flip)))
+                           (pixels[label], words[label, flip], flip)))
     topk4.append(("random prefix sums", (random_prefix, cuts, qtab)))
+    for rows in (4, 13):
+        topk4.append((f"table cut to {rows} rows",
+                      (prefix["image"], cuts[:rows].contiguous(),
+                       qtab[:rows].contiguous())))
+    n = 65536 + 5
+    topk4.append((f"{n} blocks", (torch.cat([prefix["image"],
+                                             prefix["special"][:5]]),
+                                  cuts, qtab)))
+    for k, flip in ((37, False), (1, True)):
+        search.append((f"image flip {int(flip)}, {k} candidates",
+                       (pixels["image"], words["image", flip][:k].contiguous(),
+                        flip)))
+    search.append((f"{n} blocks flip 0", (
+        torch.cat([pixels["image"], pixels["special"][:5]]),
+        torch.cat([words["image", False],
+                   words["special", False][:, :, :5]], dim=2).contiguous(),
+        False)))
     return {"dxt_hq_cluster_topk4": topk4, "etc1_hq_search": search}
+
+
+def hq_occupancy(name: str) -> str:
+    """Registers per thread, static shared memory and resident CTAs per SM
+    of HQ kernel ``name`` (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), as the card reports."""
+    lib = _build.load()
+
+    def read(fn, *args):
+        buf = (ctypes.c_int * 3)()
+        rc = fn(*args, ctypes.addressof(buf))
+        if rc != 0:
+            fail(f"{name} attributes: "
+                 f"{lib.texcomp_cuda_error_string(rc).decode()}")
+        return (f"{buf[0]} registers a thread, {buf[1]} B static shared "
+                f"memory, {buf[2]} CTAs of 256 threads per SM")
+
+    if name == "dxt_hq_cluster_topk4":
+        return read(lib.texcomp_dxt_hq_cluster_topk4_info)
+    return "; ".join(f"flip {f}: {read(lib.texcomp_etc1_hq_search_info, f)}"
+                     for f in (0, 1))
 
 
 def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
@@ -745,13 +794,16 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                 print(f"[kernels] {name} on the fleets: {'; '.join(per)}",
                       flush=True)
         if name.startswith(("dxt_hq", "etc1_hq")):
-            # The other inputs' times beside the timed case's.
+            # The other inputs' times beside the timed case's, and the
+            # kernel's registers and occupancy.
             per = []
             for label, args in cases[name][1:]:
                 t = cuda_time_ms(lambda: kernel(*args), repeats=20)
                 b_ms, b_by = bound(*kernel_work(name, args, kernel(*args)))
                 per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
             print(f"[kernels] {name} on its other inputs: {'; '.join(per)}",
+                  flush=True)
+            print(f"[kernels] {name} on the card: {hq_occupancy(name)}",
                   flush=True)
         if name in ("etc1_encode", "etc1_downsample"):
             # Every strategy's time: the search differs by strategy.

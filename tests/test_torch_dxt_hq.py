@@ -293,3 +293,81 @@ def test_empty_batch():
     assert thq.encode_dxt1_hq_blocks(torch.zeros((0, 16, 3))).shape == (0, 8)
     assert thq.encode_dxt5_hq_blocks(torch.zeros((0, 16, 4)),
                                      torch.zeros(0, dtype=torch.bool)).shape == (0, 16)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's decomposition of the cluster-fit top 4 (csrc/dxt_hq.cu):
+# eight warps each keep the top 4 of a contiguous slice of the table, and
+# warp 0 merges their lists.
+# ---------------------------------------------------------------------------
+
+_WARPS = 8
+
+
+def _kernel_order_topk4(prefix, cuts, qtab):
+    """cluster_topk4 as the kernel splits it: the table cut into 8
+    contiguous slices of ceil(P / 8) rows, in each a strict '>' insertion
+    into 4 sorted slots in table order (empty slots -inf), then the 8 lists
+    merged by (score descending, index ascending). (N, 4, 6) float32."""
+    p = prefix.to(torch.int32)
+    pt = p[:, 16, :]
+    uc = [p[:, cuts[:, 0], c] + p[:, cuts[:, 1], c] + p[:, cuts[:, 2], c]
+          for c in range(3)]
+    a_i = uc[0] * uc[0] + uc[1] * uc[1] + uc[2] * uc[2]
+    b_i = pt[:, 0:1] * uc[0] + pt[:, 1:2] * uc[1] + pt[:, 2:3] * uc[2]
+    ptt_i = (pt * pt).sum(dim=1, dtype=torch.int32)[:, None]
+    score = dxt_hq_cuda.cf_score(a_i, b_i, ptt_i,
+                                 *[qtab[None, :, j] for j in range(6)]).numpy()
+    n, parts = score.shape
+    per = -(-parts // _WARPS)
+    lists_s, lists_q = [], []
+    for w in range(_WARPS):
+        top_s = np.full((n, 4), -np.inf, np.float32)
+        top_q = np.full((n, 4), np.iinfo(np.int32).max, np.int64)
+        for q in range(w * per, min(parts, (w + 1) * per)):
+            ins = score[:, q] > top_s[:, 3]
+            top_s[ins, 3] = score[ins, q]
+            top_q[ins, 3] = q
+            for k in (3, 2, 1):
+                up = top_s[:, k] > top_s[:, k - 1]
+                for t in (top_s, top_q):
+                    lo, hi = t[:, k].copy(), t[:, k - 1].copy()
+                    t[:, k], t[:, k - 1] = np.where(up, hi, lo), np.where(up, lo, hi)
+        lists_s.append(top_s)
+        lists_q.append(top_q)
+    s = np.concatenate(lists_s, axis=1)
+    q = np.concatenate(lists_q, axis=1)
+    pick = np.take_along_axis(q, np.lexsort((q, -s), axis=1)[:, :4], axis=1)
+    assert (pick < parts).all()
+    pick = torch.from_numpy(pick)
+    u = [torch.gather(c, 1, pick).to(torch.float32) for c in uc]
+    return torch.cat([torch.stack(u, dim=2), qtab[pick, 6:9]], dim=2)
+
+
+def _topk_blocks(kind):
+    rng = np.random.default_rng({"solid": 41, "tied": 42, "random": 43}[kind])
+    px = rng.integers(0, 256, (N, 16, 3))
+    if kind == "solid":
+        px[:] = px[:, :1]
+    elif kind == "tied":  # two values per block, or duplicated halves
+        two = rng.integers(0, 2, (N, 16, 1))
+        px[: N // 2] = np.where(two[: N // 2] == 1, px[: N // 2, :1],
+                                px[: N // 2, 1:2])
+        px[N // 2:, 8:] = px[N // 2:, :8]
+    return px.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_parts", [4, 13, 965])
+@pytest.mark.parametrize("kind", ["solid", "tied", "random"])
+def test_sliced_topk4_merge_matches_twin(kind, n_parts):
+    """The kernel's split of the table over 8 warps, each slice's top 4
+    merged by (score descending, index ascending), equals the twin's
+    iterated first-occurrence argmax, bit for bit: also where slices are
+    empty (4 rows) or short (13 rows), and on blocks full of ties."""
+    tb = _t(_topk_blocks(kind))
+    prefix = thq._prefix_sums(tb, thq._pca_project(tb)[2])
+    cuts, qtab = thq._cf_device_tables(torch.device("cpu"))
+    cuts, qtab = cuts[:n_parts], qtab[:n_parts]
+    want = dxt_hq_cuda.cluster_topk4_plain(prefix, cuts, qtab)
+    got = _kernel_order_topk4(prefix, cuts, qtab)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))

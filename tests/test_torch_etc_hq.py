@@ -24,6 +24,7 @@ from texcomp.blocks import image_to_blocks
 from texcomp.codecs import etc as jetc
 from texcomp.ops import etc_pallas as ep
 from texcomp_torch.codecs import etc as tetc
+from texcomp_torch.core import colors as cc
 from texcomp_torch.ops import etc_cuda
 
 N = 256  # texcomp's API bucket: one jit shape for the block entry
@@ -240,3 +241,67 @@ def test_pad_keeps_the_reference_encoder(strategy):
         assert comp.pad(src, 20, 16, out)
         outs.append(out.get_data())
     np.testing.assert_array_equal(outs[1], outs[0])
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's packed error (csrc/etc.cu, the HQ search): pixels and
+# candidate colours as r | g << 8 | b << 16 words, each colour saturated per
+# byte, the error |c|^2 - 2 c.p + |p|^2 from byte dot products.
+# ---------------------------------------------------------------------------
+
+
+def _pack(v):
+    return v[..., 0] | (v[..., 1] << 8) | (v[..., 2] << 16)
+
+
+def _bytes(w):
+    return np.stack([(w >> (8 * k)) & 255 for k in range(4)], axis=-1)
+
+
+def _vaddus4(x, y):
+    """__vaddus4: the four bytes added, each saturated at 255."""
+    return _pack4(np.minimum(_bytes(x) + _bytes(y), 255))
+
+
+def _vsubus4(x, y):
+    """__vsubus4: the four bytes subtracted, each saturated at 0."""
+    return _pack4(np.maximum(_bytes(x) - _bytes(y), 0))
+
+
+def _pack4(b):
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def _dp4a(x, y):
+    """__dp4a on unsigned bytes: the dot product of the four bytes."""
+    return (_bytes(x) * _bytes(y)).sum(axis=-1)
+
+
+@pytest.mark.parametrize("bases", ["random", "0-8", "247-255"])
+@pytest.mark.parametrize("cw", range(8))
+def test_packed_error_matches_twin(cw, bases):
+    """Per (pixel, modifier) the kernel's expanded error (|c|^2 - 2 c.p) +
+    |p|^2, with c = base +- m saturated per byte, equals the twin's squared
+    error against clamp8(base + m), and its first argmin over the four
+    modifiers (without the |p|^2 the modifiers share) is the twin's."""
+    rng = np.random.default_rng(50 + cw)
+    n = 2048
+    px = rng.integers(0, 256, (n, 3)).astype(np.int64)
+    lo, hi = {"random": (0, 256), "0-8": (0, 9), "247-255": (247, 256)}[bases]
+    base = rng.integers(lo, hi, (n, 3)).astype(np.int64)
+    a, b = (int(v) for v in tetc._codebook("cpu")[cw, :2])
+    splat = lambda m: m * 0x010101  # noqa: E731
+    p, bw = _pack(px), _pack(base)
+    colors = [_vaddus4(bw, splat(a)), _vaddus4(bw, splat(b)),
+              _vsubus4(bw, splat(a)), _vsubus4(bw, splat(b))]
+    partial = np.stack([_dp4a(c, c) - 2 * _dp4a(c, p) for c in colors], axis=1)
+    got = partial + _dp4a(p, p)[:, None]
+
+    cand = cc.clamp8(_t(base)[:, None, :] + tetc._codebook("cpu")[cw][None, :, None])
+    want = ((cand - _t(px)[:, None, :]) ** 2).sum(dim=2)  # (n, 4)
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(
+        np.argmin(partial, axis=1), tetc._argmin_first(want, 1).numpy())
+    if bases != "random":  # the clamp bites on these bases
+        raw = base[:, None, :] + tetc._codebook("cpu")[cw].numpy()[None, :, None]
+        assert ((raw < 0) | (raw > 255)).any()

@@ -1,9 +1,10 @@
 // ETC1 encode (four strategies), decode, one fused mip level, and the HQ
 // search, for Hopper (sm_90a).
 //
-// Four kernels, one thread per 4x4 block, integer arithmetic only. Each
-// is byte-exact with the plain PyTorch codec in texcomp_torch/codecs/etc.py,
-// which follows the reference's etc_compressor.cc. The entry points at the
+// Four kernels, integer arithmetic only: one thread per 4x4 block, and for
+// the HQ search eight lanes per block. Each is byte-exact with the plain
+// PyTorch codec in texcomp_torch/codecs/etc.py, which follows the
+// reference's etc_compressor.cc. The entry points at the
 // bottom have a plain C interface: pointers, ints and a stream, returning
 // cudaGetLastError() so the caller sees a refused launch.
 //
@@ -467,56 +468,35 @@ downsample_kernel(const uint8_t* __restrict__ src, int nby, int nbx,
 //
 // A candidate is one packed word per subblock: q555 r, g, b at bits 0, 5,
 // 10 and q444 r, g, b at bits 15, 19, 23 (codecs/etc.pack_q_word).
+//
+// Pixels and colours stay packed, r | g << 8 | b << 16 (the input's own
+// format). The squared error of pixel p against a candidate colour c is
+// |c|^2 - 2 c.p + |p|^2, the dot product one __dp4a, exact in int32. |p|^2
+// is the same for every candidate colour, so the searches compare
+// |c|^2 - 2 c.p alone (the first argmin over the modifiers is unchanged)
+// and the block's |p|^2 sum is added once to the winner's error. A
+// candidate colour is clamp8(base +- m) per channel: __vaddus4 and
+// __vsubus4, saturated per byte.
 // ---------------------------------------------------------------------------
 
 constexpr int kHqRefits = 2;
 constexpr int kHqProbes = 24;
+constexpr int kHqLanes = 8;                     // lanes per 4x4 block
+constexpr int kHqBlocks = kThreads / kHqLanes;  // blocks per CTA
+constexpr int kHqChunk = kHqLanes;              // candidates per staged chunk
+static_assert(kHqProbes % kHqLanes == 0, "probes split evenly over lanes");
 
-__device__ __forceinline__ void unpack_q(uint32_t w, int (&q5)[3], int (&q4)[3]) {
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    q5[ch] = (w >> (5 * ch)) & 31;
-    q4[ch] = (w >> (15 + 4 * ch)) & 15;
-  }
-}
+// The codebook's (a, b) of each codeword, for a codeword loop that is not
+// unrolled (cb_a and cb_b fold to immediates only under an unrolled one)
+// and for a per-lane codeword.
+__constant__ int c_hq_cb[8][2] = {{2, 8},   {5, 17},  {9, 29},  {13, 42},
+                                  {18, 60}, {24, 80}, {33, 106}, {47, 183}};
 
 // Blinn's round-exact quantization of 0..255 to num_bits (color_util.h:
 // 156-164).
 __device__ __forceinline__ int quantize8(int v, int num_bits) {
   const int i = v * ((1 << num_bits) - 1) + 128;
   return (i + (i >> 8)) >> 8;
-}
-
-// The least-squares bases of subblock s for the modifiers that codeword cw
-// and the index word lo give its pixels: per channel the mean of pixel -
-// modifier, rounded half to even (s * 0.125 is exact) and clamped, then
-// quantized to 555 and 444 and packed (codecs/etc._refit_bases).
-template <bool kFlip>
-__device__ __forceinline__ uint32_t refit_word(const int (&r)[16],
-                                               const int (&g)[16],
-                                               const int (&b)[16], int s,
-                                               int cw, uint32_t lo) {
-  const int a = cb_a(cw), bb = cb_b(cw);
-  int sum[3] = {0, 0, 0};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int p = member<kFlip>(s, k);
-    const int e = etc_order(p);
-    const uint32_t idx = ((lo >> e) & 1u) | (((lo >> (e + 16)) & 1u) << 1);
-    const int mag = (idx & 1) ? bb : a;
-    const int m = idx >= 2 ? -mag : mag;
-    sum[0] += r[p] - m;
-    sum[1] += g[p] - m;
-    sum[2] += b[p] - m;
-  }
-  uint32_t w = 0;
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const int v = clamp8(__float2int_rn(float(sum[ch]) * 0.125f));
-    w |= (uint32_t(quantize8(v, 5)) << (5 * ch)) |
-         (uint32_t(quantize8(v, 4)) << (15 + 4 * ch));
-  }
-  return w;
 }
 
 // Probe j of the +-1 neighbourhood of (w1, w2), in codecs/etc.
@@ -535,6 +515,218 @@ __device__ __forceinline__ void probe_words(uint32_t w1, uint32_t w2, int j,
   p2 = sb == 0 ? w2 : moved;
 }
 
+__device__ __forceinline__ uint32_t splat(int v) { return uint32_t(v) * 0x010101u; }
+
+__device__ __forceinline__ int dot(uint32_t a, uint32_t b) {
+  return int(__dp4a(a, b, 0u));
+}
+
+// The decoded bases of the candidate (w1, w2), packed: the mode by the
+// differential window, as finish_flip. Returns use_diff.
+__device__ __forceinline__ bool hq_bases(uint32_t w1, uint32_t w2,
+                                         uint32_t& b0, uint32_t& b1) {
+  bool diff = true;
+  uint32_t d0 = 0, d1 = 0, i0 = 0, i1 = 0;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int a5 = (w1 >> (5 * ch)) & 31, c5 = (w2 >> (5 * ch)) & 31;
+    diff = diff && c5 - a5 >= -4 && c5 - a5 <= 3;
+    d0 |= uint32_t(ext5(a5)) << (8 * ch);
+    d1 |= uint32_t(ext5(c5)) << (8 * ch);
+    i0 |= uint32_t(ext4((w1 >> (15 + 4 * ch)) & 15)) << (8 * ch);
+    i1 |= uint32_t(ext4((w2 >> (15 + 4 * ch)) & 15)) << (8 * ch);
+  }
+  b0 = diff ? d0 : i0;
+  b1 = diff ? d1 : i1;
+  return diff;
+}
+
+// The logical hi word of the candidate (w1, w2) under codewords cw0, cw1,
+// packed as finish_flip packs it.
+template <bool kFlip>
+__device__ __forceinline__ uint32_t hq_hi(uint32_t w1, uint32_t w2, int cw0,
+                                          int cw1) {
+  uint32_t b0, b1;
+  const bool diff = hq_bases(w1, w2, b0, b1);
+  constexpr int kS1[3] = {27, 19, 11};
+  constexpr int kS2[3] = {24, 16, 8};
+  constexpr int kT1[3] = {28, 20, 12};
+  uint32_t h = (kFlip ? 1u : 0u) | (diff ? 2u : 0u);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const uint32_t a5 = (w1 >> (5 * ch)) & 31, c5 = (w2 >> (5 * ch)) & 31;
+    h |= diff ? (a5 << kS1[ch]) | (((c5 - a5) & 7) << kS2[ch])
+              : (((w1 >> (15 + 4 * ch)) & 15) << kT1[ch]) |
+                    (((w2 >> (15 + 4 * ch)) & 15) << kS2[ch]);
+  }
+  return h | (uint32_t(cw0) << 5) | (uint32_t(cw1) << 2);
+}
+
+// The four candidate colours of base under modifiers (a, b), in codebook
+// order [a, b, -a, -b], and their |c|^2.
+__device__ __forceinline__ void hq_colors(uint32_t base, int a, int b,
+                                          uint32_t (&c)[4], int (&k)[4]) {
+  c[0] = __vaddus4(base, splat(a));
+  c[1] = __vaddus4(base, splat(b));
+  c[2] = __vsubus4(base, splat(a));
+  c[3] = __vsubus4(base, splat(b));
+#pragma unroll
+  for (int m = 0; m < 4; ++m) k[m] = dot(c[m], c[m]);
+}
+
+// Subblock s's error under base and modifiers (a, b), less its |p|^2 sum:
+// per pixel the least |c|^2 - 2 c.p over the four colours.
+template <bool kFlip, int kS>
+__device__ __forceinline__ int hq_sub_err(const uint32_t (&px)[16],
+                                          uint32_t base, int a, int b) {
+  uint32_t c[4];
+  int k[4];
+  hq_colors(base, a, b, c, k);
+  int sum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t p = px[member<kFlip>(kS, j)];
+    int e[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) e[m] = k[m] - 2 * dot(c[m], p);
+    sum += min(min(e[0], e[1]), min(e[2], e[3]));
+  }
+  return sum;
+}
+
+// FindBestCodeword for subblock s: the first of the 8 codewords of least
+// error (strict '<' in scan order).
+template <bool kFlip, int kS>
+__device__ __forceinline__ int hq_sub_search(const uint32_t (&px)[16],
+                                             uint32_t base, int& cw) {
+  int best = 0;
+#pragma unroll 1
+  for (int c = 0; c < 8; ++c) {
+    const int e = hq_sub_err<kFlip, kS>(px, base, c_hq_cb[c][0], c_hq_cb[c][1]);
+    if (c == 0 || e < best) {
+      best = e;
+      cw = c;
+    }
+  }
+  return best;
+}
+
+// One step: the exact SMALLER_ERROR search of the flip for the candidate
+// (w1, w2). Returns its error less the block's |p|^2 sum, and its
+// codewords as cw0 | cw1 << 3.
+template <bool kFlip>
+__device__ __forceinline__ int hq_step(const uint32_t (&px)[16], uint32_t w1,
+                                       uint32_t w2, int& cws) {
+  uint32_t b0, b1;
+  hq_bases(w1, w2, b0, b1);
+  int cw0 = 0, cw1 = 0;
+  const int e = hq_sub_search<kFlip, 0>(px, b0, cw0) +
+                hq_sub_search<kFlip, 1>(px, b1, cw1);
+  cws = cw0 | (cw1 << 3);
+  return e;
+}
+
+// The lexicographic least (e, s) over the 8 lanes of a block, on every
+// lane: with s the step, the first step of least error.
+__device__ __forceinline__ void group_min(int& e, int& s) {
+#pragma unroll
+  for (int o = 1; o < kHqLanes; o <<= 1) {
+    const int oe = __shfl_xor_sync(0xFFFFFFFFu, e, o);
+    const int os = __shfl_xor_sync(0xFFFFFFFFu, s, o);
+    if (oe < e || (oe == e && os < s)) {
+      e = oe;
+      s = os;
+    }
+  }
+}
+
+// The index word lo of the candidate (w1, w2) under codewords cws, on
+// every lane of the block: lane l finds the first modifier of least error
+// for its pixels 2l and 2l + 1 (row-major, `mine`), and the lanes OR
+// their bits together (StorePixelIndex).
+template <bool kFlip>
+__device__ __forceinline__ uint32_t hq_lo(const uint32_t (&mine)[2], int l,
+                                          uint32_t w1, uint32_t w2, int cws) {
+  uint32_t b0, b1;
+  hq_bases(w1, w2, b0, b1);
+  uint32_t lo = 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int p = 2 * l + j;
+    const bool first = kFlip ? p < 8 : (p & 3) < 2;
+    const int cw = first ? cws & 7 : cws >> 3;
+    uint32_t c[4];
+    int k[4];
+    hq_colors(first ? b0 : b1, c_hq_cb[cw][0], c_hq_cb[cw][1], c, k);
+    int e = k[0] - 2 * dot(c[0], mine[j]);
+    uint32_t m_best = 0;
+#pragma unroll
+    for (int m = 1; m < 4; ++m) {
+      const int em = k[m] - 2 * dot(c[m], mine[j]);
+      if (em < e) {
+        e = em;
+        m_best = m;
+      }
+    }
+    const int eo = etc_order(p);
+    lo |= ((m_best & 1u) << eo) | ((m_best >> 1) << (eo + 16));
+  }
+#pragma unroll
+  for (int o = 1; o < kHqLanes; o <<= 1)
+    lo |= __shfl_xor_sync(0xFFFFFFFFu, lo, o);
+  return lo;
+}
+
+// The least-squares bases of subblock s for the modifiers that codeword cw
+// and the index word lo give its pixels: per channel the mean of pixel -
+// modifier, rounded half to even (s * 0.125 is exact) and clamped, then
+// quantized to 555 and 444 and packed (codecs/etc._refit_bases).
+template <bool kFlip, int kS>
+__device__ __forceinline__ uint32_t hq_refit_word(const uint32_t (&px)[16],
+                                                  int cw, uint32_t lo) {
+  const int a = c_hq_cb[cw][0], b = c_hq_cb[cw][1];
+  int sum[3] = {0, 0, 0}, msum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int p = member<kFlip>(kS, j);
+    const int e = etc_order(p);
+    const uint32_t idx = ((lo >> e) & 1u) | (((lo >> (e + 16)) & 1u) << 1);
+    const int mag = (idx & 1) ? b : a;
+    msum += idx >= 2 ? -mag : mag;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) sum[ch] += (px[p] >> (8 * ch)) & 255;
+  }
+  uint32_t w = 0;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int v = clamp8(__float2int_rn(float(sum[ch] - msum) * 0.125f));
+    w |= (uint32_t(quantize8(v, 5)) << (5 * ch)) |
+         (uint32_t(quantize8(v, 4)) << (15 + 4 * ch));
+  }
+  return w;
+}
+
+// Issues the cp.async copies of candidate chunk `chunk` of the CTA's
+// blocks into dst ([subblock][block][candidate]): 2 x 32 words of each
+// candidate, coalesced 128-byte rows of the (k, 2, n) array. Words past
+// the last candidate or block are zero-filled.
+__device__ __forceinline__ void hq_stage(
+    uint32_t (&dst)[2][kHqBlocks][kHqChunk], const uint32_t* cands, int n,
+    int k_cands, long long block0, int chunk) {
+  for (int e = threadIdx.x; e < 2 * kHqBlocks * kHqChunk; e += kThreads) {
+    const int kl = e / (2 * kHqBlocks), s = (e / kHqBlocks) % 2;
+    const int b = e % kHqBlocks;
+    const int k = chunk * kHqChunk + kl;
+    const bool ok = k < k_cands && block0 + b < n;
+    const uint32_t* src = ok ? cands + (2LL * k + s) * n + block0 + b : cands;
+    const uint32_t saddr =
+        static_cast<uint32_t>(__cvta_generic_to_shared(&dst[s][b][kl]));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
 // Replaces texcomp/ops/etc_pallas.py:_etc1_hq_kernel (one flip per launch,
 // as there).
 //
@@ -544,68 +736,140 @@ __device__ __forceinline__ void probe_words(uint32_t w1, uint32_t w2, int j,
 // order: the k candidates, refit 0 from the winner so far, refit 1 from
 // refit 0's own words (whether or not they won), and the 24 probes around
 // refit 1's bases. Each step is the exact SMALLER_ERROR search of
-// finish_flip, so the error is an exact int32 and '<' keeps the first.
+// finish_flip, so the error is an exact int32.
 //
-// Bound on the H100: integer issue. Each step costs a flip's exhaustive
-// search, about 6,300 integer operations, and a block takes k + 26 steps
-// (66 with texcomp's 40 candidates). One thread per block, one step at a
-// time, with the candidate words read as the step needs them; the TPU's
-// (tiles, steps) grid with VMEM scratch for the chained state becomes
-// three registers.
+// Layout: 8 lanes per block, 32 blocks per 256-thread CTA. Only the two
+// refits chain; the rest is split over the lanes:
+//   - candidates: lane l takes k = l (mod 8) in order, each chunk of 8
+//     staged in shared memory by cp.async, double-buffered so that the
+//     next chunk loads during this one's search;
+//   - each refit: lane l scores codeword l in both subblocks, and a
+//     first-occurrence argmin over (error, codeword) per subblock follows;
+//   - probes: lane l takes probes l, l + 8, l + 16.
+// Each lane keeps its first best (error, step) by strict '<'; the
+// lexicographic least over the lanes is the serial search's first best.
+// The critical path is 5 + 3 steps (k = 40) and two eighths of a step for
+// the refits, not 66 steps.
+//
+// Bound on the H100: integer issue. Each step is a flip's exhaustive
+// search, 2 subblocks x 8 codewords x 8 pixels x 4 colours. The bound
+// counts a (pixel, colour) as 8 scalar operations (3 subtracts, a multiply,
+// 2 multiply-adds and a min); packed it issues a __dp4a, a multiply-add
+// and a min, so the kernel can come near that bound or pass it.
 template <bool kFlip>
 __global__ void __launch_bounds__(kThreads)
-hq_search_kernel(const int32_t* __restrict__ px, int n,
+hq_search_kernel(const int32_t* __restrict__ pixels, int n,
                  const uint32_t* __restrict__ cands, int k_cands,
                  int32_t* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int r[16], g[16], b[16];
+  __shared__ uint32_t stage[2][2][kHqBlocks][kHqChunk];
+  const int g = threadIdx.x / kHqLanes, l = threadIdx.x % kHqLanes;
+  const long long block0 = (long long)blockIdx.x * kHqBlocks;
+  const long long i = block0 + g;
+  const bool valid = i < n;
+
+  // All 16 pixels, and this lane's two (2l and 2l + 1) for the index
+  // words.
+  uint32_t px[16], mine[2];
+  int psum = 0;  // the block's |p|^2 sum
 #pragma unroll
   for (int p = 0; p < 16; ++p) {
-    const int v = px[16LL * i + p];
-    r[p] = v & 255;
-    g[p] = (v >> 8) & 255;
-    b[p] = (v >> 16) & 255;
+    px[p] = valid ? uint32_t(pixels[16 * i + p]) & 0xFFFFFFu : 0u;
+    psum += dot(px[p], px[p]);
   }
-  // 16 * 3 * 255^2 < 2^24: the first step always wins.
-  int best = 0x7FFFFFFF;
-  uint32_t best_hi = 0, best_lo = 0, cur_hi = 0, cur_lo = 0;
-  uint32_t center1 = 0, center2 = 0;
-  const int steps = k_cands + kHqRefits + kHqProbes;
-  for (int step = 0; step < steps; ++step) {
-    uint32_t w1, w2;
-    const bool refit = step >= k_cands && step < k_cands + kHqRefits;
-    if (step < k_cands) {
-      w1 = cands[(2LL * step) * n + i];
-      w2 = cands[(2LL * step + 1) * n + i];
-    } else if (refit) {
-      const uint32_t h = step == k_cands ? best_hi : cur_hi;
-      const uint32_t l = step == k_cands ? best_lo : cur_lo;
-      w1 = refit_word<kFlip>(r, g, b, 0, (h >> 5) & 7, l);
-      w2 = refit_word<kFlip>(r, g, b, 1, (h >> 2) & 7, l);
-      center1 = w1;
-      center2 = w2;
-    } else {
-      probe_words(center1, center2, step - k_cands - kHqRefits, w1, w2);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    mine[j] = valid ? uint32_t(pixels[16 * i + 2 * l + j]) & 0xFFFFFFu : 0u;
+
+  // This lane's first best step: its error (less psum), step, words and
+  // codewords. 16 * 3 * 255^2 < 2^24: the first step always wins.
+  int best = 0x7FFFFFFF, best_step = 0x7FFFFFFF, best_cws = 0;
+  uint32_t best_w1 = 0, best_w2 = 0;
+  auto consider = [&](int e, int step, uint32_t w1, uint32_t w2, int cws) {
+    if (e < best) {
+      best = e;
+      best_step = step;
+      best_w1 = w1;
+      best_w2 = w2;
+      best_cws = cws;
     }
-    int q5[2][3], q4[2][3];
-    unpack_q(w1, q5[0], q4[0]);
-    unpack_q(w2, q5[1], q4[1]);
-    uint32_t hi, lo;
-    const int err = finish_flip<kFlip, false>(r, g, b, q5, q4, hi, lo);
-    if (refit) {
-      cur_hi = hi;
-      cur_lo = lo;
+  };
+  // The winner of the block so far, on every lane.
+  auto winner = [&](uint32_t& w1, uint32_t& w2, int& cws) {
+    int e = best, s = best_step;
+    group_min(e, s);
+    const int owner = s < k_cands ? s % kHqLanes
+                      : s < k_cands + kHqRefits ? 0
+                                                : (s - k_cands - kHqRefits) % kHqLanes;
+    const int src = (threadIdx.x & 31 & ~(kHqLanes - 1)) | owner;
+    w1 = __shfl_sync(0xFFFFFFFFu, best_w1, src);
+    w2 = __shfl_sync(0xFFFFFFFFu, best_w2, src);
+    cws = __shfl_sync(0xFFFFFFFFu, best_cws, src);
+    return e;
+  };
+
+  // Candidates.
+  const int n_chunks = (k_cands + kHqChunk - 1) / kHqChunk;
+  if (n_chunks > 0) hq_stage(stage[0], cands, n, k_cands, block0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks)
+      hq_stage(stage[(c + 1) & 1], cands, n, k_cands, block0, c + 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const int k = c * kHqChunk + l;
+    if (k < k_cands) {
+      const uint32_t w1 = stage[c & 1][0][g][l], w2 = stage[c & 1][1][g][l];
+      int cws;
+      const int e = hq_step<kFlip>(px, w1, w2, cws);
+      consider(e, k, w1, w2, cws);
     }
-    if (err < best) {
-      best = err;
-      best_hi = hi;
-      best_lo = lo;
-    }
+    __syncthreads();
   }
-  out[i] = int32_t(best_hi);
-  out[n + i] = int32_t(best_lo);
-  out[2LL * n + i] = best;
+
+  // Refits: refit 0 from the winner so far (the all-zero words when there
+  // was no candidate), refit 1 from refit 0's own words.
+  uint32_t w1, w2;
+  int cws;
+  const bool any = winner(w1, w2, cws) != 0x7FFFFFFF;
+  uint32_t lo = hq_lo<kFlip>(mine, l, w1, w2, cws);
+  if (!any) {
+    cws = 0;
+    lo = 0;
+  }
+  for (int r = 0; r < kHqRefits; ++r) {
+    w1 = hq_refit_word<kFlip, 0>(px, cws & 7, lo);
+    w2 = hq_refit_word<kFlip, 1>(px, cws >> 3, lo);
+    uint32_t b0, b1;
+    hq_bases(w1, w2, b0, b1);
+    int e0 = hq_sub_err<kFlip, 0>(px, b0, c_hq_cb[l][0], c_hq_cb[l][1]);
+    int e1 = hq_sub_err<kFlip, 1>(px, b1, c_hq_cb[l][0], c_hq_cb[l][1]);
+    int cw0 = l, cw1 = l;
+    group_min(e0, cw0);
+    group_min(e1, cw1);
+    cws = cw0 | (cw1 << 3);
+    consider(e0 + e1, k_cands + r, w1, w2, cws);
+    if (r + 1 < kHqRefits) lo = hq_lo<kFlip>(mine, l, w1, w2, cws);
+  }
+
+  // Probes around refit 1's bases (w1, w2).
+#pragma unroll 1
+  for (int j = l; j < kHqProbes; j += kHqLanes) {
+    uint32_t p1, p2;
+    probe_words(w1, w2, j, p1, p2);
+    int pcws;
+    const int e = hq_step<kFlip>(px, p1, p2, pcws);
+    consider(e, k_cands + kHqRefits + j, p1, p2, pcws);
+  }
+
+  const int e = winner(w1, w2, cws);
+  const uint32_t hi = hq_hi<kFlip>(w1, w2, cws & 7, cws >> 3);
+  lo = hq_lo<kFlip>(mine, l, w1, w2, cws);
+  if (valid && l == 0) {
+    out[i] = int32_t(hi);
+    out[n + i] = int32_t(lo);
+    out[2LL * n + i] = e + psum;
+  }
 }
 
 inline int grid_for(long long n) { return int((n + kThreads - 1) / kThreads); }
@@ -689,9 +953,27 @@ int texcomp_etc1_hq_search(const void* px, int n, const void* cands,
   const int32_t* p = static_cast<const int32_t*>(px);
   const uint32_t* c = static_cast<const uint32_t*>(cands);
   int32_t* o = static_cast<int32_t*>(out);
-  if (flip) hq_search_kernel<true><<<grid_for(n), kThreads, 0, s>>>(p, n, c, k_cands, o);
-  else hq_search_kernel<false><<<grid_for(n), kThreads, 0, s>>>(p, n, c, k_cands, o);
+  const int grid = int(((long long)n + kHqBlocks - 1) / kHqBlocks);
+  if (flip) hq_search_kernel<true><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
+  else hq_search_kernel<false><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
   return int(cudaGetLastError());
+}
+
+// Registers per thread, static shared memory in bytes, and resident CTAs
+// per SM of the flip's HQ search kernel, into out[0..2].
+int texcomp_etc1_hq_search_info(int flip, int* out) {
+  const void* fn = flip ? reinterpret_cast<const void*>(hq_search_kernel<true>)
+                        : reinterpret_cast<const void*>(hq_search_kernel<false>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, 0);
+  if (err != cudaSuccess) return int(err);
+  out[0] = attr.numRegs;
+  out[1] = int(attr.sharedSizeBytes);
+  out[2] = ctas;
+  return 0;
 }
 
 }  // extern "C"

@@ -40,11 +40,13 @@ SIGNATURES = {
     "texcomp_dxt5_downsample": [_P, _I, _I, _P, _P, _P],
     # csrc/dxt_hq.cu
     "texcomp_dxt_hq_cluster_topk4": [_P, _I, _P, _P, _I, _P, _P],
+    "texcomp_dxt_hq_cluster_topk4_info": [_P],
     # csrc/etc.cu
     "texcomp_etc1_encode": [_P, _I, _I, _I, _I, _I, _P, _I, _P],
     "texcomp_etc1_decode": [_P, _I, _I, _P, _P],
     "texcomp_etc1_downsample": [_P, _I, _I, _P, _I, _P],
     "texcomp_etc1_hq_search": [_P, _I, _P, _I, _I, _P, _P],
+    "texcomp_etc1_hq_search_info": [_I, _P],
     # csrc/pvrtc.cu
     "texcomp_pvrtc_morph": [_P, _I, _I, _P, _P, _P],
     "texcomp_pvrtc_morph_batched": [_P, _I, _I, _I, _P, _P],

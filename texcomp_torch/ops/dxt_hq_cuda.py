@@ -30,7 +30,7 @@ from texcomp_torch.ops._launch import check as _check
 from texcomp_torch.ops._launch import launch as _launch
 from texcomp_torch.ops._launch import pick as _pick
 
-#: The kernel's constant-memory table holds at most every ordered cut.
+#: The kernel's packed table holds at most every ordered cut.
 _MAX_PARTS = 969
 
 
