@@ -20,9 +20,12 @@ line is printed:
                 bands, both swap values, always4 and a ragged 4087x4083
                 image on a 4096x4096 grid; DXT/ETC1 decode of random block
                 bytes and of encoded payloads; ETC1 encode in all four
-                strategies on RGB, RGBX and the ragged image; the fused
-                DXT1/DXT5/ETC1 downsample of encoded and random payloads
-                (ETC1 in all four strategies); the PVRTC morph (single
+                strategies on RGB, RGBX, the ragged image and a 512x512
+                image of solid, mirror-symmetric, two-colour and split
+                blocks (ties); the fused DXT1/DXT5/ETC1 downsample of
+                encoded and random payloads (ETC1 in all four strategies;
+                random payloads hold malformed differential blocks, whose
+                bases leave 0..255); the PVRTC morph (single
                 image, with its own and another fallback pixel), upscale +
                 modulate and mode + pack of random pixels, all-zero and
                 zero-alpha blocks, opaque and translucent and flat tiles;
@@ -33,10 +36,13 @@ line is printed:
                 2-value and split blocks, of random prefix sums, with the
                 table cut to 4 and to 13 rows, and of 65,541 blocks; the
                 ETC1 HQ search of both flips of the same blocks, with 37
-                and with 1 candidate, and of 65,541 blocks. Then each
-                kernel's CUDA-event median time against its twin's, and
-                its bound; for the two HQ kernels also their registers,
-                shared memory and resident CTAs per SM.
+                and with 1 candidate, and of 65,541 blocks. First the
+                rates of csrc/etc.cu's micro-kernels (the packed kernels'
+                operation bound) and the SASS of the search's inner loop;
+                then each kernel's CUDA-event median time against its
+                twin's, and its bound; for the two HQ kernels and the ETC1
+                encode and fused level also their registers, shared memory
+                and resident CTAs per SM.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -84,10 +90,12 @@ gives them. The last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -241,6 +249,35 @@ _CF_PARTITION_OPS, _CF_BLOCK_OPS = 60, 100
 # quantized and packed), a probe 15.
 _ETC_HQ_REFIT_OPS, _ETC_HQ_PROBE_OPS = 348, 15
 
+# The packed kernels (csrc/etc.cu: the ETC1 encode, its fused level and the
+# HQ search) do not issue the scalar operations counted above: per (pixel,
+# colour) pair of their search they issue one __dp4a and one multiply-add,
+# and per 32 pairs (one codeword's 4 colours against a subblock's 8 pixels)
+# 4 more __dp4a for the colours' |c|^2, all on one pipe (rate kinds 0, 1
+# and 4 run at one rate; kind 5 shows the min and add pipe apart). Their
+# operation bound is therefore these instructions over that pipe's rate,
+# measured on the card by rate kind 4 (:func:`measure_rates`); phase 3
+# prints the SASS of the inner loop beside it. Pairs per block: a flip's
+# search is 2 subblocks x 8 codewords x 8 pixels x 4 colours; the indices
+# of the chosen flip 16 x 4; an HQ step is a flip's search, a refit one
+# codeword per lane in both subblocks (8 lanes), the index word 16 x 4,
+# three times.
+PACKED_PER_PAIR = 17 / 8
+_ETC_FLIP_PAIRS, _ETC_INDEX_PAIRS = 2 * 8 * 8 * 4, 16 * 4
+_ETC_ENCODE_PAIRS = {0: _ETC_FLIP_PAIRS + _ETC_INDEX_PAIRS,
+                     1: _ETC_FLIP_PAIRS + _ETC_INDEX_PAIRS,
+                     2: 2 * _ETC_FLIP_PAIRS + _ETC_INDEX_PAIRS,
+                     3: _ETC_INDEX_PAIRS}
+_ETC_HQ_REFIT_PAIRS = 8 * 2 * 8 * 4
+#: Rate micro-kernels of csrc/etc.cu: kind -> (what, instructions (kind 3:
+#: pairs) a thread issues per iteration).
+RATE_KINDS = {0: ("__dp4a", 128), 1: ("multiply-add", 128),
+              2: ("min + max", 256), 3: ("search inner loop, pairs", 512),
+              4: ("__dp4a + multiply-add", 128),
+              5: ("__dp4a + min + max", 192)}
+#: Set by :func:`measure_rates`: kind -> per second on this card.
+RATES: dict = {}
+
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
@@ -255,9 +292,25 @@ def _pvrtc_pack_ops(out: torch.Tensor) -> int:
             + (n - n1) * _PVRTC_PACK_2BPP_OPS)
 
 
+def packed_pairs(name: str, args: tuple, out):
+    """(pixel, colour) pairs of a packed kernel's call (None for the other
+    kernels): what its blocks' searches need."""
+    if name == "etc1_encode":
+        return out.shape[0] * _ETC_ENCODE_PAIRS[args[3]]
+    if name == "etc1_downsample":
+        return out.shape[0] * _ETC_ENCODE_PAIRS[args[3]]
+    if name == "etc1_hq_search":
+        steps = args[1].shape[0] + etc.HQ_PROBES
+        return args[0].shape[0] * (steps * _ETC_FLIP_PAIRS
+                                   + etc.HQ_REFITS * _ETC_HQ_REFIT_PAIRS
+                                   + (etc.HQ_REFITS + 1) * _ETC_INDEX_PAIRS)
+    return None
+
+
 def kernel_work(name: str, args: tuple, out):
     """(bytes, operations) of one call: each input read once, each output
-    written once, and the operations this call's blocks need."""
+    written once, and the scalar int32 operations this call's blocks need
+    (for the packed kernels, the count they had as scalar code)."""
     data = args[0]
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = _nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *outs)
@@ -296,11 +349,34 @@ def kernel_work(name: str, args: tuple, out):
     return nbytes, ops
 
 
-def bound(nbytes: int, ops: int):
-    """(bound_ms, bound_by): the larger of the byte and operation times."""
+def bound(nbytes: int, ops: int, pairs=None):
+    """(bound_ms, bound_by): the larger of the byte and operation times.
+    For a packed kernel (``pairs`` given) the operations are its search's
+    instructions on the __dp4a pipe at the rate measured on the card, and,
+    for the fused level, its decode's scalar operations (``ops``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    if pairs is not None:
+        t_pairs = pairs * PACKED_PER_PAIR / RATES[4] * 1e3
+        t_ops = max(t_pairs, t_ops)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bound(name: str, args: tuple, out):
+    """(bound_ms, bound_by, note) of one call: the packed bound for the
+    packed kernels, with their scalar-count bound in the note; the
+    scalar-count bound for the others."""
+    nbytes, ops = kernel_work(name, args, out)
+    pairs = packed_pairs(name, args, out)
+    if pairs is None:
+        return (*bound(nbytes, ops), f"{nbytes / 2**20:.1f} MiB, "
+                f"{ops / 1e9:.3f} G int ops")
+    decode = out.shape[0] * _ETC_DOWN_DECODE_OPS if name == "etc1_downsample" else 0
+    ms, by = bound(nbytes, decode, pairs)
+    scalar_ms, scalar_by = bound(nbytes, ops)
+    return ms, by, (f"{nbytes / 2**20:.1f} MiB, {pairs / 1e9:.3f} G (pixel, "
+                    f"colour) pairs; the scalar-count bound {scalar_ms:.4f} ms "
+                    f"by {scalar_by}")
 
 
 # ---------------------------------------------------------------------------
@@ -536,6 +612,15 @@ def special_blocks(m: int = 4096) -> torch.Tensor:
     return torch.cat([solid, tied.reshape(m, 16, 3), two, split])
 
 
+def tie_image() -> torch.Tensor:
+    """A 512x512 RGB image on the card made of :func:`special_blocks`'
+    16,384 blocks in block order: solid, mirror-symmetric, two-colour and
+    split blocks, on which flips, codewords and modifiers tie."""
+    blocks = special_blocks().to(torch.uint8)
+    return blocks.reshape(128, 128, 4, 4, 3).permute(0, 2, 1, 3, 4).reshape(
+        512, 512, 3).contiguous()
+
+
 def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     """The two HQ kernels' cases, at the inputs the HQ encoders give them:
     the prefix sums and the candidate words of the 1024^2 test image's
@@ -581,25 +666,80 @@ def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     return {"dxt_hq_cluster_topk4": topk4, "etc1_hq_search": search}
 
 
-def hq_occupancy(name: str) -> str:
-    """Registers per thread, static shared memory and resident CTAs per SM
-    of HQ kernel ``name`` (cudaFuncGetAttributes and
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor), as the card reports."""
-    lib = _build.load()
+#: Kernels whose registers, shared memory and occupancy phase 3 prints:
+#: name -> (C entry point, its argument values and their labels).
+OCCUPANCY = {
+    "dxt_hq_cluster_topk4": ("texcomp_dxt_hq_cluster_topk4_info", ((), "")),
+    "etc1_hq_search": ("texcomp_etc1_hq_search_info", ((0, 1), "flip")),
+    "etc1_encode": ("texcomp_etc1_encode_info", ((2, 0, 1, 3), "s")),
+    "etc1_downsample": ("texcomp_etc1_downsample_info", ((2, 0, 1, 3), "s")),
+}
 
-    def read(fn, *args):
+
+def occupancy(name: str) -> str:
+    """Registers per thread, static shared memory and resident CTAs per SM
+    of kernel ``name`` (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), as the card reports,
+    for each variant (flip or strategy) it has."""
+    lib = _build.load()
+    entry, (values, label) = OCCUPANCY[name]
+
+    def read(*args):
         buf = (ctypes.c_int * 3)()
-        rc = fn(*args, ctypes.addressof(buf))
+        rc = getattr(lib, entry)(*args, ctypes.addressof(buf))
         if rc != 0:
             fail(f"{name} attributes: "
                  f"{lib.texcomp_cuda_error_string(rc).decode()}")
         return (f"{buf[0]} registers a thread, {buf[1]} B static shared "
                 f"memory, {buf[2]} CTAs of 256 threads per SM")
 
-    if name == "dxt_hq_cluster_topk4":
-        return read(lib.texcomp_dxt_hq_cluster_topk4_info)
-    return "; ".join(f"flip {f}: {read(lib.texcomp_etc1_hq_search_info, f)}"
-                     for f in (0, 1))
+    if not values:
+        return read()
+    return "; ".join(f"{label} {v}: {read(v)}" for v in values)
+
+
+def measure_rates() -> None:
+    """Runs csrc/etc.cu's rate micro-kernels (:data:`RATE_KINDS`) on 16
+    CTAs per SM and sets :data:`RATES`; prints each rate and the SASS of
+    the search's inner loop (kind 3) as cuobjdump gives it."""
+    lib = _build.load()
+    ctas = 16 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 200
+    out = torch.empty(ctas * 256, dtype=torch.int32, device="cuda")
+
+    def launch(kind):
+        rc = lib.texcomp_etc1_rate(kind, ctas, iters, out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"rate kernel {kind}: "
+                 f"{lib.texcomp_cuda_error_string(rc).decode()}")
+
+    parts = []
+    for kind, (what, per) in RATE_KINDS.items():
+        ms = cuda_time_ms(lambda: launch(kind), repeats=5)
+        RATES[kind] = ctas * 256 * iters * per / (ms * 1e-3)
+        parts.append(f"{kind} {what} {RATES[kind] / 1e12:.3f} T/s")
+    print(f"[kernels] rates on the card (csrc/etc.cu rate kernels, {ctas} "
+          f"CTAs of 256): {'; '.join(parts)}", flush=True)
+    print(f"[kernels] search inner loop SASS (rate kind 3, 512 pairs an "
+          f"iteration): {inner_loop_sass()}", flush=True)
+
+
+def inner_loop_sass() -> str:
+    """The opcode counts of rate kind 3's SASS in the built library."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return "cuobjdump not found"
+    dump = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=300).stdout
+    for fn in dump.split("Function : ")[1:]:
+        if "rate_kernelILi3E" not in fn.split("\n", 1)[0]:
+            continue
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn))
+        return ", ".join(f"{op} {n}" for op, n in ops.most_common(12))
+    return "rate kernel 3 not found in the SASS"
 
 
 def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
@@ -621,6 +761,7 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
     dxt1_payload = dxt_cuda.dxt1_encode_cuda(rgb, SIZE, SIZE)
     dxt5_payload = dxt_cuda.dxt5_encode_cuda(rgba, SIZE, SIZE)
     etc_payload = etc_cuda.etc1_encode_cuda(rgb, SIZE, SIZE, etc.SMALLER_ERROR)
+    ties = tie_image()
     nb = SIZE // 4
     strategies = [etc.SMALLER_ERROR, etc.SPLIT_HORIZONTALLY,
                   etc.SPLIT_VERTICALLY, etc.HEURISTIC]
@@ -664,13 +805,16 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             (f"{label} s{s}", (img, SIZE, SIZE, s))
             for label, img in (("rgb", rgb), ("rgbx input", rgba),
                                ("ragged rgb", rgb_rag))
-            for s in strategies],
+            for s in strategies]
+            + [(f"ties s{s}", (ties, 512, 512, s)) for s in strategies],
         "etc1_decode": [
             ("encoded", (etc_payload, SIZE, SIZE)),
             ("random", (rand8, SIZE, SIZE)),
         ],
         "etc1_downsample": [
-            (f"encoded s{s}", (etc_payload, nb, nb, s)) for s in strategies],
+            (f"{label} s{s}", (data, nb, nb, s))
+            for label, data in (("encoded", etc_payload), ("random", rand8))
+            for s in strategies],
         **pvrtc_kernel_cases(pv),
         **hq_kernel_cases(rgb_hq),
     }
@@ -748,6 +892,7 @@ def _difference(got, want) -> float:
 def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                   rgb_hq: torch.Tensor) -> dict:
     """Kernel vs plain on the card; returns per-kernel results."""
+    measure_rates()
     cases = kernel_cases(rgb, rgba, pv, rgb_hq)
     results = {}
     for name, (replaces, source, plain, kernel) in KERNELS.items():
@@ -765,16 +910,14 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
         out = kernel(*timed)
         ms = cuda_time_ms(lambda: kernel(*timed), repeats=20)
         plain_ms = cuda_time_ms(lambda: plain(*timed), repeats=5)
-        nbytes, ops = kernel_work(name, timed, out)
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by, note = kernel_bound(name, timed, out)
         results[name] = {"replaces": replaces, "source": source,
                          "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"[kernels] {name}: {len(cases[name])} cases equal to plain "
               f"(max abs err {worst}); [{cases[name][0][0]}] kernel {ms:.4f} "
               f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({nbytes / 2**20:.1f} MiB, {ops / 1e9:.3f} G int "
-              f"ops; {bound_ms / ms:.1%} of it)", flush=True)
+              f"{bound_by} ({note}; {bound_ms / ms:.1%} of it)", flush=True)
         if name.endswith("downsample"):
             # The per-level route the fused kernel replaces: decode kernel,
             # 2x2 average in torch, encode kernel.
@@ -788,7 +931,7 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             for label, args in cases[name][1:]:
                 if label.startswith("fleet"):
                     t = cuda_time_ms(lambda: kernel(*args), repeats=20)
-                    b_ms, b_by = bound(*kernel_work(name, args, kernel(*args)))
+                    b_ms, b_by, _ = kernel_bound(name, args, kernel(*args))
                     per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
             if per:
                 print(f"[kernels] {name} on the fleets: {'; '.join(per)}",
@@ -799,20 +942,21 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             per = []
             for label, args in cases[name][1:]:
                 t = cuda_time_ms(lambda: kernel(*args), repeats=20)
-                b_ms, b_by = bound(*kernel_work(name, args, kernel(*args)))
+                b_ms, b_by, _ = kernel_bound(name, args, kernel(*args))
                 per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
             print(f"[kernels] {name} on its other inputs: {'; '.join(per)}",
-                  flush=True)
-            print(f"[kernels] {name} on the card: {hq_occupancy(name)}",
                   flush=True)
         if name in ("etc1_encode", "etc1_downsample"):
             # Every strategy's time: the search differs by strategy.
             per = []
             for label, args in cases[name][1:4]:
                 t = cuda_time_ms(lambda: kernel(*args), repeats=20)
-                b_ms, b_by = bound(*kernel_work(name, args, out))
+                b_ms, b_by, _ = kernel_bound(name, args, out)
                 per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
             print(f"[kernels] {name} by strategy: {'; '.join(per)}",
+                  flush=True)
+        if name in OCCUPANCY:
+            print(f"[kernels] {name} on the card: {occupancy(name)}",
                   flush=True)
     return results
 

@@ -244,9 +244,11 @@ def test_pad_keeps_the_reference_encoder(strategy):
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's packed error (csrc/etc.cu, the HQ search): pixels and
-# candidate colours as r | g << 8 | b << 16 words, each colour saturated per
-# byte, the error |c|^2 - 2 c.p + |p|^2 from byte dot products.
+# The CUDA kernels' packed error (csrc/etc.cu's search, which the HQ search
+# and the reference encode share): pixels and candidate colours as
+# r | g << 8 | b << 16 words, the error |c|^2 - 2 c.p + |p|^2 from byte dot
+# products. Each colour is clamped per channel; saturating bytes model that
+# here, and tests/test_torch_etc.py holds the kernel's DPX form to clamp8.
 # ---------------------------------------------------------------------------
 
 

@@ -47,6 +47,9 @@ SIGNATURES = {
     "texcomp_etc1_downsample": [_P, _I, _I, _P, _I, _P],
     "texcomp_etc1_hq_search": [_P, _I, _P, _I, _I, _P, _P],
     "texcomp_etc1_hq_search_info": [_I, _P],
+    "texcomp_etc1_encode_info": [_I, _P],
+    "texcomp_etc1_downsample_info": [_I, _P],
+    "texcomp_etc1_rate": [_I, _I, _I, _P, _P],
     # csrc/pvrtc.cu
     "texcomp_pvrtc_morph": [_P, _I, _I, _P, _P, _P],
     "texcomp_pvrtc_morph_batched": [_P, _I, _I, _I, _P, _P],
