@@ -25,10 +25,12 @@ line is printed:
                 blocks (ties); the fused DXT1/DXT5/ETC1 downsample of
                 encoded and random payloads (ETC1 in all four strategies;
                 random payloads hold malformed differential blocks, whose
-                bases leave 0..255); the PVRTC morph (single
-                image, with its own and another fallback pixel), upscale +
-                modulate and mode + pack of random pixels, all-zero and
-                zero-alpha blocks, opaque and translucent and flat tiles;
+                bases leave 0..255; DXT also of "edge words", blocks that
+                take every palette and alpha-ramp branch); the PVRTC
+                morph (single image, with its own and another fallback
+                pixel), upscale + modulate and mode + pack of random
+                pixels, all-zero and zero-alpha blocks, opaque and
+                translucent and flat tiles;
                 the batched morph, upscale + modulate and mode + pack of a
                 fleet of 192 images of 512x512 and of 1024 of 64x64; the
                 HQ cluster-fit top 4 (its float payload compared bit for
@@ -40,9 +42,10 @@ line is printed:
                 rates of csrc/etc.cu's micro-kernels (the packed kernels'
                 operation bound) and the SASS of the search's inner loop;
                 then each kernel's CUDA-event median time against its
-                twin's, and its bound; for the two HQ kernels and the ETC1
-                encode and fused level also their registers, shared memory
-                and resident CTAs per SM.
+                twin's, and its bound; for the two HQ kernels, the ETC1
+                encode and the three fused levels also their registers,
+                shared memory and resident CTAs per SM, and for the DXT
+                fused levels their SASS instruction count.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -93,6 +96,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import functools
 import importlib.util
 import json
 import re
@@ -612,6 +616,36 @@ def special_blocks(m: int = 4096) -> torch.Tensor:
     return torch.cat([solid, tied.reshape(m, 16, 3), two, split])
 
 
+def edge_words(is_dxt1: bool) -> np.ndarray:
+    """(K, 8 | 16) uint8 DXT1 / DXT5 blocks that take every branch of the
+    fused level's decode, each combination once: color words with c0 > c1,
+    c0 < c1 and c0 == c1 under index words of all 3s and other row
+    patterns; for DXT5 also alpha endpoints with a0 > a1, a0 < a1 and
+    a0 == a1 under code fields of all 6s, all 7s, 6 and 7 in every row, and
+    codes 0-7 across the rows (pixel 5's code straddles the block's first
+    4-byte boundary)."""
+    colors = [(0xF81F, 0x07E0), (0x07E0, 0xF81F), (0x7BEF, 0x7BEF),
+              (0xFFFF, 0x0000), (0x0000, 0xFFFF), (0x0000, 0x0000),
+              (0x8411, 0x8410), (0x8410, 0x8411)]
+    indices = [0xFFFFFFFF, 0xAAAAAAAA, 0x55555555, 0x00000000, 0xE4E4E4E4,
+               0x1B1B1B1B, 0xFFAA5500]
+    color = np.array([c0 | c1 << 16 | iw << 32 for c0, c1 in colors
+                      for iw in indices], dtype="<u8")
+    color = color.view(np.uint8).reshape(-1, 8)
+    if is_dxt1:
+        return color
+    ends = [(200, 17), (17, 200), (128, 128), (255, 0), (0, 255), (0, 0),
+            (255, 255)]
+    codes = [[6] * 16, [7] * 16, [6, 7, 6, 7, 7, 6, 7, 6] * 2,
+             [n % 8 for n in range(16)], [7 - n % 8 for n in range(16)]]
+    fields = [sum(c << 3 * n for n, c in enumerate(cs)) for cs in codes]
+    alpha = np.array([a0 | a1 << 8 | f << 16 for a0, a1 in ends
+                      for f in fields], dtype="<u8")
+    alpha = alpha.view(np.uint8).reshape(-1, 8)
+    return np.concatenate([np.repeat(alpha, len(color), axis=0),
+                           np.tile(color, (len(alpha), 1))], axis=1)
+
+
 def tie_image() -> torch.Tensor:
     """A 512x512 RGB image on the card made of :func:`special_blocks`'
     16,384 blocks in block order: solid, mirror-symmetric, two-colour and
@@ -669,6 +703,8 @@ def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
 #: Kernels whose registers, shared memory and occupancy phase 3 prints:
 #: name -> (C entry point, its argument values and their labels).
 OCCUPANCY = {
+    "dxt1_downsample": ("texcomp_dxt_downsample_info", ((0,), "")),
+    "dxt5_downsample": ("texcomp_dxt_downsample_info", ((1,), "")),
     "dxt_hq_cluster_topk4": ("texcomp_dxt_hq_cluster_topk4_info", ((), "")),
     "etc1_hq_search": ("texcomp_etc1_hq_search_info", ((0, 1), "flip")),
     "etc1_encode": ("texcomp_etc1_encode_info", ((2, 0, 1, 3), "s")),
@@ -680,7 +716,8 @@ def occupancy(name: str) -> str:
     """Registers per thread, static shared memory and resident CTAs per SM
     of kernel ``name`` (cudaFuncGetAttributes and
     cudaOccupancyMaxActiveBlocksPerMultiprocessor), as the card reports,
-    for each variant (flip or strategy) it has."""
+    for each variant (flip or strategy) it has; an entry without a label
+    passes its values as they are."""
     lib = _build.load()
     entry, (values, label) = OCCUPANCY[name]
 
@@ -693,8 +730,8 @@ def occupancy(name: str) -> str:
         return (f"{buf[0]} registers a thread, {buf[1]} B static shared "
                 f"memory, {buf[2]} CTAs of 256 threads per SM")
 
-    if not values:
-        return read()
+    if not label:
+        return read(*values)
     return "; ".join(f"{label} {v}: {read(v)}" for v in values)
 
 
@@ -722,24 +759,40 @@ def measure_rates() -> None:
     print(f"[kernels] rates on the card (csrc/etc.cu rate kernels, {ctas} "
           f"CTAs of 256): {'; '.join(parts)}", flush=True)
     print(f"[kernels] search inner loop SASS (rate kind 3, 512 pairs an "
-          f"iteration): {inner_loop_sass()}", flush=True)
+          f"iteration): {sass_opcodes('rate_kernelILi3E')}", flush=True)
 
 
-def inner_loop_sass() -> str:
-    """The opcode counts of rate kind 3's SASS in the built library."""
+#: Kernels whose SASS instruction count phase 3 prints: name -> a part of
+#: the mangled name of their kernel.
+SASS = {"dxt1_downsample": "downsample_kernelILb0E",
+        "dxt5_downsample": "downsample_kernelILb1E"}
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(library: str) -> str:
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     if not tool.is_file():
+        return ""
+    return subprocess.run([str(tool), "-sass", library], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def sass_opcodes(kernel: str, library=None) -> str:
+    """The instruction count and the most frequent opcodes of the first
+    kernel whose mangled name holds ``kernel``, in the SASS of ``library``
+    (by default the built one) as cuobjdump gives it."""
+    dump = _sass(str(library or _build.library_path()))
+    if not dump:
         return "cuobjdump not found"
-    dump = subprocess.run([str(tool), "-sass", str(_build.library_path())],
-                          capture_output=True, text=True, timeout=300).stdout
     for fn in dump.split("Function : ")[1:]:
-        if "rate_kernelILi3E" not in fn.split("\n", 1)[0]:
+        if kernel not in fn.split("\n", 1)[0]:
             continue
         ops = collections.Counter(
             m.group(1).split(".")[0] for m in re.finditer(
                 r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", fn))
-        return ", ".join(f"{op} {n}" for op, n in ops.most_common(12))
-    return "rate kernel 3 not found in the SASS"
+        return f"{sum(ops.values())} instructions: " + ", ".join(
+            f"{op} {n}" for op, n in ops.most_common(12))
+    return f"{kernel} not found in the SASS"
 
 
 def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
@@ -752,6 +805,11 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                           dtype=torch.uint8).cuda()
     rand16 = torch.randint(0, 256, (PIXELS // 16, 16), generator=g,
                            dtype=torch.uint8).cuda()
+    edge = {}  # every block of the 4096^2 grid drawn from edge_words' set
+    for is_dxt1 in (True, False):
+        words = torch.from_numpy(edge_words(is_dxt1))
+        pick = torch.randint(0, len(words), (PIXELS // 16,), generator=g)
+        edge[is_dxt1] = words[pick].cuda()
     rag_h, rag_w = SIZE - 9, SIZE - 13  # 4087 x 4083: 6 has_one_pixel blocks
     rgb_rag = rgb[:rag_h, :rag_w].contiguous()
     rgba_rag = rgba[:rag_h, :rag_w].contiguous()
@@ -796,10 +854,12 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
         "dxt1_downsample": [
             ("encoded", (dxt1_payload, nb, nb, True)),
             ("random", (rand8, nb, nb, True)),
+            ("edge words", (edge[True], nb, nb, True)),
         ],
         "dxt5_downsample": [
             ("encoded", (dxt5_payload, nb, nb, False)),
             ("random", (rand16, nb, nb, False)),
+            ("edge words", (edge[False], nb, nb, False)),
         ],
         "etc1_encode": [
             (f"{label} s{s}", (img, SIZE, SIZE, s))
@@ -957,6 +1017,9 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                   flush=True)
         if name in OCCUPANCY:
             print(f"[kernels] {name} on the card: {occupancy(name)}",
+                  flush=True)
+        if name in SASS:
+            print(f"[kernels] {name} SASS: {sass_opcodes(SASS[name])}",
                   flush=True)
     return results
 
