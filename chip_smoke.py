@@ -18,7 +18,10 @@ line is printed:
                 of bench.py's HQ cells), bytes equal:
                 DXT1/DXT5 encode of solid and near-solid regions, alpha
                 bands, both swap values, always4 and a ragged 4087x4083
-                image on a 4096x4096 grid; DXT/ETC1 decode of random block
+                image on a 4096x4096 grid, of blocks whose luminance ends
+                and alphas tie (dxt_tie_blocks), of 1x1, 3x5 and 13x7
+                images on their own and on 16x24 grids, and of 1024x1024
+                views 4 and 1 bytes past their allocation; DXT/ETC1 decode of random block
                 bytes and of encoded payloads; ETC1 encode in all four
                 strategies on RGB, RGBX, the ragged image and a 512x512
                 image of solid, mirror-symmetric, two-colour and split
@@ -42,10 +45,11 @@ line is printed:
                 rates of csrc/etc.cu's micro-kernels (the packed kernels'
                 operation bound) and the SASS of the search's inner loop;
                 then each kernel's CUDA-event median time against its
-                twin's, and its bound; for the two HQ kernels, the ETC1
-                encode and the three fused levels also their registers,
-                shared memory and resident CTAs per SM, and for the DXT
-                fused levels their SASS instruction count.
+                twin's, and its bound; for the two HQ kernels, the DXT and
+                ETC1 encodes and the three fused levels also their
+                registers, shared memory and resident CTAs per SM, and for
+                the DXT encodes and fused levels their SASS instruction
+                count.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -103,6 +107,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -646,6 +651,115 @@ def edge_words(is_dxt1: bool) -> np.ndarray:
                            np.tile(color, (len(alpha), 1))], axis=1)
 
 
+def dxt_tie_blocks(seed: int = 23, m: int = 256) -> np.ndarray:
+    """(6m, 16, 4) uint8 RGBA blocks (scan order y*4+x) on which the DXT
+    encode's searches tie, m of each kind: two pixels of equal luminance
+    and different colour at the block's least and at its greatest
+    luminance, in random positions ((r, g, b) and (r - 2k, g + k, b) or
+    (r + k, g, b - 4k), equal in 4r + 8g + b only; in odd blocks (r, g, b)
+    and (r + 8t, g - 5t, b + 8t), equal with r and b swapped too); alphas equidistant between two ramp entries (6-interpolant
+    mode, and the explicit 0/255 mode through two 0s); alphas of only 0s
+    and 255s; exactly one 0 or exactly one 255 among mid alphas; all 16
+    alphas equal (0 and 255 among them); and solid blocks (the
+    constant-colour path)."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(m)[:, None]
+
+    def mid(*shape):
+        return rng.integers(64, 192, shape)
+
+    # Luminance ties at both ends; mid pixels have lum 832..2483, the low
+    # pair at most 309 and the high pair at least 2924.
+    ties = mid(m, 16, 4)
+    pos = rng.permuted(np.tile(np.arange(16), (m, 1)), axis=1)[:, :4]
+    k = rng.integers(1, 5, (m, 1))
+    both = (rows % 2 == 1) * np.where(k > 2, 2, 1) * np.array([8, -5, 8])
+    lo = np.concatenate([rng.integers(10, 18, (m, 1)), rng.integers(12, 20, (m, 1)),
+                         rng.integers(2, 10, (m, 1))], 1)
+    hi = np.concatenate([rng.integers(224, 236, (m, 1)),
+                         rng.integers(236, 256, (m, 1)),
+                         rng.integers(236, 240, (m, 1))], 1)
+    one_way = rows % 2 == 0
+    lo2 = lo + np.where(one_way, k * np.array([-2, 1, 0]), both)
+    hi2 = hi + np.where(one_way, k * np.array([1, 0, -4]), both)
+    for j, c in enumerate((lo, lo2, hi, hi2)):
+        ties[rows, pos[:, j:j + 1], :3] = c[:, None]
+
+    # Alphas equidistant between two entries of the block's ramp.
+    equi = mid(m, 16, 4)
+    for n in range(m):
+        explicit = n % 2 == 1
+        low = int(rng.integers(1, 120))
+        high = int(rng.integers(low + 7, 255))
+        if explicit:  # a0 = low <= a1 = high: 4 interpolants, 0, 255
+            ramp = [low, high] + [((5 - j) * low + j * high) // 5 for j in range(1, 5)]
+        else:  # a0 = high > a1 = low: 6 interpolants
+            ramp = [high, low] + [((7 - j) * high + j * low) // 7 for j in range(1, 7)]
+        e = np.unique(ramp)
+        halves = [(x + y) // 2 for x, y in zip(e, e[1:]) if (x + y) % 2 == 0]
+        fill = rng.choice(halves or list(e), 14)
+        alpha = np.concatenate([[low, high], fill])
+        if explicit:
+            alpha[2:4] = 0
+        equi[n, :, 3] = rng.permutation(alpha)
+
+    binary = mid(m, 16, 4)
+    binary[:, :, 3] = rng.integers(0, 2, (m, 16)) * 255
+    one = mid(m, 16, 4)
+    one[rows, rng.integers(0, 16, (m, 1)), 3] = np.where(rows % 2 == 0, 0, 255)
+    flat = mid(m, 16, 4)
+    flat[:, :, 3] = np.concatenate([[0, 255], rng.integers(0, 256, m - 2)])[:, None]
+    solid = np.repeat(rng.integers(0, 256, (m, 1, 4)), 16, axis=1)
+    return np.concatenate([ties, equi, binary, one, flat, solid]).astype(np.uint8)
+
+
+def dxt_tie_image(cols: int = 64, m: int = 1024) -> np.ndarray:
+    """:func:`dxt_tie_blocks` laid out as an RGBA image, ``cols`` blocks a
+    row."""
+    blocks = dxt_tie_blocks(m=m)
+    nby = len(blocks) // cols
+    return blocks.reshape(nby, cols, 4, 4, 4).transpose(0, 2, 1, 3, 4).reshape(
+        4 * nby, 4 * cols, 4)
+
+
+def _misaligned(img: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``img`` that starts ``offset`` bytes past the
+    start of its allocation."""
+    buf = torch.empty(img.numel() + 16, dtype=torch.uint8, device=img.device)
+    view = buf[offset:offset + img.numel()].view(img.shape)
+    view.copy_(img)
+    return view
+
+
+def dxt_encode_cases(rgb: torch.Tensor, rgba: torch.Tensor) -> list:
+    """The DXT encodes' cases beyond the 4096^2 image, each as (label,
+    [(format, image, swap)] in the order rgb, bgr, rgba, bgra, grid): the
+    :func:`dxt_tie_image` blocks; images of 1x1, 3x5 and 13x7 pixels on
+    their own grids and on larger ones (has_one_pixel blocks); and 1024^2
+    views that start 4 and 1 bytes past their allocation (the vector loads'
+    alignment tests)."""
+    ties = torch.from_numpy(dxt_tie_image()).cuda()
+    sets = [("lum and alpha ties", ties, tuple(ties.shape[:2]))]
+    for h, w in ((1, 1), (3, 5), (13, 7)):
+        sets.append((f"small {h}x{w}", rgba[:h, :w], (h, w)))
+        sets.append((f"small {h}x{w} on 16x24", rgba[:h, :w], (16, 24)))
+    side = 1024
+    out = []
+    for label, img, grid in sets:
+        out.append((label, [("rgb", img[..., :3].contiguous(), False),
+                            ("bgr", img[..., :3].contiguous(), True),
+                            ("rgba", img.contiguous(), False),
+                            ("bgra", img.contiguous(), True)], grid))
+    for offset in (4, 1):
+        rgb_view = _misaligned(rgb[:side, :side].contiguous(), offset)
+        rgba_view = _misaligned(rgba[:side, :side].contiguous(), offset)
+        out.append((f"misaligned base +{offset}",
+                    [("rgb", rgb_view, False), ("bgr", rgb_view, True),
+                     ("rgba", rgba_view, False), ("bgra", rgba_view, True)],
+                    (side, side)))
+    return out
+
+
 def tie_image() -> torch.Tensor:
     """A 512x512 RGB image on the card made of :func:`special_blocks`'
     16,384 blocks in block order: solid, mirror-symmetric, two-colour and
@@ -703,6 +817,8 @@ def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
 #: Kernels whose registers, shared memory and occupancy phase 3 prints:
 #: name -> (C entry point, its argument values and their labels).
 OCCUPANCY = {
+    "dxt1_encode": ("texcomp_dxt_encode_info", ((0,), "")),
+    "dxt5_encode": ("texcomp_dxt_encode_info", ((1,), "")),
     "dxt1_downsample": ("texcomp_dxt_downsample_info", ((0,), "")),
     "dxt5_downsample": ("texcomp_dxt_downsample_info", ((1,), "")),
     "dxt_hq_cluster_topk4": ("texcomp_dxt_hq_cluster_topk4_info", ((), "")),
@@ -764,7 +880,8 @@ def measure_rates() -> None:
 
 #: Kernels whose SASS instruction count phase 3 prints: name -> a part of
 #: the mangled name of their kernel.
-SASS = {"dxt1_downsample": "downsample_kernelILb0E",
+SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E",
+        "dxt1_downsample": "downsample_kernelILb0E",
         "dxt5_downsample": "downsample_kernelILb1E"}
 
 
@@ -775,6 +892,40 @@ def _sass(library: str) -> str:
         return ""
     return subprocess.run([str(tool), "-sass", library], capture_output=True,
                           text=True, timeout=300).stdout
+
+
+def library_occupancy(kernel: str, library: str) -> str:
+    """Registers per thread and resident CTAs of 256 threads per SM of the
+    first kernel whose mangled name holds ``kernel`` in ``library``, a build
+    of this repository's sources that need not have the info entry points
+    (an older commit's): its cubins, as cuobjdump extracts them, loaded
+    with libcuda's module and occupancy calls."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    names = [fn.split("\n", 1)[0].strip()
+             for fn in _sass(library).split("Function : ")[1:]]
+    name = next((n for n in names if kernel in n), None)
+    if not tool.is_file() or name is None:
+        return f"{kernel}: not measured (no cuobjdump or no such kernel)"
+    torch.zeros(1, device="cuda")  # a current context for libcuda
+    cuda = ctypes.CDLL("libcuda.so.1")
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([str(tool), "-xelf", "all", str(Path(library).resolve())],
+                       cwd=tmp, capture_output=True, check=True, timeout=300)
+        for cubin in sorted(Path(tmp).glob("*.cubin")):
+            module, fn = ctypes.c_void_p(), ctypes.c_void_p()
+            if cuda.cuModuleLoad(ctypes.byref(module), str(cubin).encode()):
+                continue
+            if cuda.cuModuleGetFunction(ctypes.byref(fn), module,
+                                        name.encode()) == 0:
+                regs, ctas = ctypes.c_int(), ctypes.c_int()
+                cuda.cuFuncGetAttribute(ctypes.byref(regs), 4, fn)  # NUM_REGS
+                cuda.cuOccupancyMaxActiveBlocksPerMultiprocessor(
+                    ctypes.byref(ctas), fn, 256, ctypes.c_size_t(0))
+                cuda.cuModuleUnload(module)
+                return (f"{regs.value} registers a thread, {ctas.value} CTAs "
+                        f"of 256 threads per SM")
+            cuda.cuModuleUnload(module)
+    return f"{kernel}: not measured (not found in the extracted cubins)"
 
 
 def sass_opcodes(kernel: str, library=None) -> str:
@@ -823,6 +974,7 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
     nb = SIZE // 4
     strategies = [etc.SMALLER_ERROR, etc.SPLIT_HORIZONTALLY,
                   etc.SPLIT_VERTICALLY, etc.HEURISTIC]
+    dxt_extra = dxt_encode_cases(rgb, rgba)
     return {
         "dxt1_encode": [
             ("rgb", (rgb, SIZE, SIZE, False, False)),
@@ -832,13 +984,17 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             ("rgbx input", (rgba, SIZE, SIZE, False, False)),
             ("ragged rgb", (rgb_rag, SIZE, SIZE, False, False)),
             ("ragged bgr", (rgb_rag, SIZE, SIZE, True, False)),
-        ],
+        ] + [(f"{label} {fmt}{' always4' * a4}", (img, *grid, swap, a4))
+             for label, images, grid in dxt_extra
+             for fmt, img, swap in images[:3] for a4 in (False, True)],
         "dxt5_encode": [
             ("rgba", (rgba, SIZE, SIZE, False)),
             ("bgra", (rgba, SIZE, SIZE, True)),
             ("ragged rgba", (rgba_rag, SIZE, SIZE, False)),
             ("ragged bgra", (rgba_rag, SIZE, SIZE, True)),
-        ],
+        ] + [(f"{label} {fmt}", (img, *grid, swap))
+             for label, images, grid in dxt_extra
+             for fmt, img, swap in images[2:]],
         "dxt1_decode": [
             ("random", (rand8, SIZE, SIZE, False, False)),
             ("random swap", (rand8, SIZE, SIZE, True, False)),

@@ -39,6 +39,7 @@ SIGNATURES = {
     "texcomp_dxt1_downsample": [_P, _I, _I, _P, _P, _P],
     "texcomp_dxt5_downsample": [_P, _I, _I, _P, _P, _P],
     "texcomp_dxt_downsample_info": [_I, _P],
+    "texcomp_dxt_encode_info": [_I, _P],
     # csrc/dxt_hq.cu
     "texcomp_dxt_hq_cluster_topk4": [_P, _I, _P, _P, _I, _P, _P],
     "texcomp_dxt_hq_cluster_topk4_info": [_P],
