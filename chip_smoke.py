@@ -33,9 +33,17 @@ line is printed:
                 morph (single image, with its own and another fallback
                 pixel), upscale + modulate and mode + pack of random
                 pixels, all-zero and zero-alpha blocks, opaque and
-                translucent and flat tiles;
+                translucent and flat tiles, of "axis ties" and "zero axes"
+                (pvrtc_tie_blocks: extremes shared by several pixels,
+                equal lightness of different colours, equal spreads, a
+                zero channel, black with alpha, all zero; with their own
+                and another fallback pixel) and of "small grids" (8x8,
+                16x16 and 32x32 images, one block wide at 8x8); upscale +
+                modulate and mode + pack also of "modulation ties" (A == B,
+                pixels equidistant from two candidates);
                 the batched morph, upscale + modulate and mode + pack of a
-                fleet of 192 images of 512x512 and of 1024 of 64x64; the
+                fleet of 192 images of 512x512 and of 1024 of 64x64, of
+                the tie images' 128x128 quarters and of 64 8x8 images; the
                 HQ cluster-fit top 4 (its float payload compared bit for
                 bit) of the 1024x1024 test image's blocks, of solid, tied,
                 2-value and split blocks, of random prefix sums, with the
@@ -46,10 +54,10 @@ line is printed:
                 operation bound) and the SASS of the search's inner loop;
                 then each kernel's CUDA-event median time against its
                 twin's, and its bound; for the two HQ kernels, the DXT and
-                ETC1 encodes and the three fused levels also their
-                registers, shared memory and resident CTAs per SM, and for
-                the DXT encodes and fused levels their SASS instruction
-                count.
+                ETC1 encodes, the three fused levels and the four PVRTC
+                kernels also their registers, shared memory and resident
+                CTAs per SM, and for the DXT encodes, fused levels and
+                PVRTC kernels their SASS instruction count.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -227,23 +235,41 @@ _ETC_DECODE_OPS = 412      # bases, codewords, 16 modified pixels
 _DXT1_DOWN_OPS = 4 * 312 + 48 + _DXT1_ENCODE_OPS  # 4 decodes + sums, avg
 _DXT5_DOWN_OPS = 4 * 614 + 64 + _DXT5_ENCODE_OPS
 _ETC_DOWN_DECODE_OPS = 4 * 412 + 48
-# PVRTC, per 8x4 block of 32 pixels. Morph: per pixel the lightness (6
-# for the channel fields, a multiply, two multiply-adds and a shift: 12)
-# and a strict min and max update on each of five axes (a compare and two
-# selects each, 6, plus 2 for the field of r, g, b or a): 50; per axis the
-# fallback, the four-channel spread and the pair update, 35; the swap 25,
-# the two reductions and packs 76, indexing 20. Upscale + modulate: per
-# pixel 8 for its channels, 64 for two 4-corner weighted sums of 4
-# channels (a multiply, three multiply-adds and a shift each), 32 for the
-# two blended candidates, 48 for four L1 distances, 8 for the early exit
-# and the byte store; per block 126 for the 3x3 neighborhood (wrapped
-# indices and channel fields). Mode + pack: 64 to unpack 32 bytes, per
-# pixel 10 for the three counters, 72 for the edges, mode, colors, Z-order
-# slot and indexing; then 96 for a 1bpp word (3 a pixel) or 52 for a
-# 2bpp one (16 stored pixels and the two flags), as each block's mode in
-# this run's output says.
-_PVRTC_MORPH_OPS = 32 * 50 + 5 * 35 + 25 + 76 + 20
-_PVRTC_UPMOD_OPS = 32 * (8 + 64 + 32 + 48 + 8) + 126
+# PVRTC, per 8x4 block of 32 pixels. The morph and upscale + modulate
+# work on 16-bit lane pairs, (r, b) and (g, a) (csrc/pvrtc.cu); these are
+# the operations that form issues, a multiply-add, a 3-input min or max, a
+# __dp4a and a byte SAD as two. Morph: per pixel the shared-memory store 1,
+# the two lightness keys in one word 5 (a __dp4a, a shift, a multiply-add),
+# the lane pairs 3, four channel keys 8 (a multiply-add each) and half of
+# five 3-input 16x2 min / max, 5: 22; per axis the key fields and scan
+# positions 5, the two words by index 4, the origin fallback 2, the byte-SAD
+# spread 2 and the best-axis update 4: 17; the swap 7 (two __dp4a channel
+# sums), the two reductions and packs 76, indexing 20. Upscale + modulate:
+# per pixel the horizontal sums of four lane pairs 20 (a multiply, a
+# multiply-add, a shift and a mask each), the two blended candidates' four
+# lane pairs 20, four byte words 8, four byte SADs 8, the early exit 7 and
+# the byte store 2: 65; per pixel row the vertical sums of 3 columns x 4
+# lane pairs, 36; per block 84 for the 3x3 neighborhood (wrapped indices,
+# addresses, lane pairs) and indexing 20. The same work as scalar code
+# (the count these two kernels were held to before they moved to lanes,
+# kept in kernel_bound's note): morph per pixel the lightness 12 and a
+# strict min and max update on each of five axes, 50; per axis the
+# fallback, the four-channel spread and the pair update 35; the swap 25,
+# reductions 76, indexing 20. Upscale + modulate per pixel 8 for its
+# channels, 64 for two 4-corner weighted sums of 4 channels, 32 for the two
+# blended candidates, 48 for four L1 distances, 8 for the early exit and
+# the store; per block 126 for the neighborhood. Mode + pack: 64 to unpack
+# 32 bytes, per pixel 10 for the three counters, 72 for the edges, mode,
+# colors, Z-order slot and indexing; then 96 for a 1bpp word (3 a pixel) or
+# 52 for a 2bpp one (16 stored pixels and the two flags), as each block's
+# mode in this run's output says.
+_PVRTC_MORPH_OPS = 32 * 22 + 5 * 17 + 7 + 76 + 20
+_PVRTC_UPMOD_OPS = 32 * 65 + 4 * 36 + 84 + 20
+_PVRTC_SCALAR_OPS = {
+    "pvrtc_morph": 32 * 50 + 5 * 35 + 25 + 76 + 20,
+    "pvrtc_morph_batched": 32 * 50 + 5 * 35 + 25 + 76 + 20,
+    "pvrtc_upscale_modulate": 32 * (8 + 64 + 32 + 48 + 8) + 126,
+}
 _PVRTC_PACK_OPS = 64 + 32 * 10 + 72
 _PVRTC_PACK_1BPP_OPS, _PVRTC_PACK_2BPP_OPS = 96, 52
 # HQ cluster-fit top 4, per partition: 3 to scale the cuts, 6 adds for u,
@@ -318,8 +344,8 @@ def packed_pairs(name: str, args: tuple, out):
 
 def kernel_work(name: str, args: tuple, out):
     """(bytes, operations) of one call: each input read once, each output
-    written once, and the scalar int32 operations this call's blocks need
-    (for the packed kernels, the count they had as scalar code)."""
+    written once, and the int32 operations this call's blocks need (for
+    csrc/etc.cu's packed kernels, the count they had as scalar code)."""
     data = args[0]
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = _nbytes(*(a for a in args if isinstance(a, torch.Tensor)), *outs)
@@ -373,13 +399,18 @@ def bound(nbytes: int, ops: int, pairs=None):
 
 def kernel_bound(name: str, args: tuple, out):
     """(bound_ms, bound_by, note) of one call: the packed bound for the
-    packed kernels, with their scalar-count bound in the note; the
-    scalar-count bound for the others."""
+    packed kernels (csrc/etc.cu's and the PVRTC morph and upscale +
+    modulate), with their scalar-count bound in the note; the scalar-count
+    bound for the others."""
     nbytes, ops = kernel_work(name, args, out)
     pairs = packed_pairs(name, args, out)
     if pairs is None:
-        return (*bound(nbytes, ops), f"{nbytes / 2**20:.1f} MiB, "
-                f"{ops / 1e9:.3f} G int ops")
+        note = f"{nbytes / 2**20:.1f} MiB, {ops / 1e9:.3f} G int ops"
+        if name in _PVRTC_SCALAR_OPS:
+            scalar_ms, scalar_by = bound(
+                nbytes, out.shape[0] * _PVRTC_SCALAR_OPS[name])
+            note += f"; the scalar-count bound {scalar_ms:.4f} ms by {scalar_by}"
+        return (*bound(nbytes, ops), note)
     decode = out.shape[0] * _ETC_DOWN_DECODE_OPS if name == "etc1_downsample" else 0
     ms, by = bound(nbytes, decode, pairs)
     scalar_ms, scalar_by = bound(nbytes, ops)
@@ -769,6 +800,122 @@ def tie_image() -> torch.Tensor:
         512, 512, 3).contiguous()
 
 
+PVRTC_TIE_VALUES = (0, 1, 127, 128, 254, 255)
+
+
+def _lightness(px: np.ndarray) -> np.ndarray:
+    """GetExtremesFast's lightness (77 r + 150 g + 28 b) >> 8 of (..., 4)
+    pixels."""
+    px = px.astype(np.int64)
+    return (77 * px[..., 0] + 150 * px[..., 1] + 28 * px[..., 2]) >> 8
+
+
+def _axis_pairs(blocks: np.ndarray):
+    """(lo, hi, spread): each axis's first-occurrence min and max pixels
+    (N, 5, 4) and their L1 spread (N, 5), of (N, 32, 4) blocks that have
+    no all-zero axis."""
+    px = blocks.astype(np.int64)
+    rows = np.arange(len(px))[:, None]
+    axes = np.concatenate([_lightness(px)[..., None], px], axis=-1)
+    lo = px[rows, axes.argmin(axis=1)]
+    hi = px[rows, axes.argmax(axis=1)]
+    return lo, hi, np.abs(hi - lo).sum(axis=-1)
+
+
+def pvrtc_tie_blocks(seed: int = 29, m: int = 256) -> dict:
+    """The morph's tie cases, by label, each (m, 32, 4) uint8 blocks in
+    scan order py * 8 + px:
+
+      axis ties       2-4 colours a block, channels from PVRTC_TIE_VALUES,
+                      at random scan positions: every axis's min and max
+                      shared by several pixels that differ elsewhere;
+      lightness ties  16 pixels each of two lightnesses, equal after the
+                      >> 8 and of different colours;
+      equal spreads   few-valued blocks on which two axes reach the
+                      largest spread with different pairs (strict '>'
+                      keeps the earlier axis);
+      zero axes       one channel 0 throughout; r, g and b 0 with alpha
+                      set; and all-zero blocks (the origin fallback).
+    """
+    rng = np.random.default_rng(seed)
+    rows = np.arange(m)[:, None]
+    values = np.array(PVRTC_TIE_VALUES)
+
+    def palette_blocks(n, vals, colours=(2, 5)):
+        k = rng.integers(*colours, (n, 1))
+        pal = vals[rng.integers(0, len(vals), (n, 4, 4))]
+        pick = rng.integers(0, 1 << 20, (n, 32)) % k
+        return pal[np.arange(n)[:, None], pick]
+
+    ties = palette_blocks(m, values)
+
+    # Lightness ties: colours grouped by lightness, two groups a block.
+    pool = rng.integers(0, 256, (1 << 16, 4))
+    order = np.argsort(_lightness(pool), kind="stable")
+    pool = pool[order]
+    _, start, count = np.unique(_lightness(pool), return_index=True,
+                                return_counts=True)
+    big = np.flatnonzero(count >= 8)
+    groups = big[rng.integers(0, len(big), (m, 2))]
+    which = rng.permuted(np.tile(np.arange(32) % 2, (m, 1)), axis=1)
+    g = groups[rows, which]
+    light = pool[start[g] + rng.integers(0, 1 << 20, (m, 32)) % count[g]]
+
+    # Equal spreads: a pool of few-valued blocks, kept where the largest
+    # spread is reached by two axes whose pairs differ.
+    cand = palette_blocks(64 * m, np.array([0, 64, 128, 192, 255]), (2, 4))
+    cand[..., 3] = np.maximum(cand[..., 3], 1)  # no all-zero axis
+    nz = (cand[..., :3].max(axis=1) > 0).all(axis=-1)
+    cand = cand[nz]
+    lo, hi, spreads = _axis_pairs(cand)
+    top = spreads == spreads.max(axis=1, keepdims=True)
+    first = top.argmax(axis=1)[:, None]
+    n_cand = np.arange(len(cand))[:, None]
+    other = ((lo != lo[n_cand, first]) | (hi != hi[n_cand, first])).any(axis=-1)
+    equal = cand[(top & other).any(axis=1)][:m]
+    if len(equal) < m:
+        raise RuntimeError(f"only {len(equal)} equal-spread blocks")
+
+    # Zero axes: a random channel 0, black with alpha, all zero.
+    zero = rng.integers(0, 256, (m, 32, 4))
+    third = m // 3
+    zero[rows[:third], :, rng.integers(0, 4, (third, 1))] = 0
+    zero[third:2 * third, :, :3] = 0
+    zero[third:2 * third, :, 3] = rng.integers(1, 256, (third, 32))
+    zero[2 * third:] = 0
+    return {label: b.astype(np.uint8) for label, b in
+            (("axis ties", ties), ("lightness ties", light),
+             ("equal spreads", equal), ("zero axes", zero))}
+
+
+def pvrtc_block_image(blocks: np.ndarray, side: int, seed: int = 31):
+    """A (side, side, 4) uint8 image of ``blocks`` (K, 32, 4) in row-major
+    block order, random blocks after them; its block 0 is random, so the
+    image's pixel (0, 0) lies in no tie block."""
+    rng = np.random.default_rng(seed)
+    nby, nbx = side // 4, side // 8
+    fill = rng.integers(0, 256, (nby * nbx, 32, 4), dtype=np.uint8)
+    k = min(len(blocks), nby * nbx - 1)
+    fill[1:1 + k] = blocks[:k]
+    return np.ascontiguousarray(fill.reshape(nby, nbx, 4, 8, 4).transpose(
+        0, 2, 1, 3, 4).reshape(side, side, 4))
+
+
+def pvrtc_modulation_ties(side: int = 256, seed: int = 37):
+    """An upscale + modulate input on which the candidates' distances tie:
+    (1, side, side, 4) uint8 pixels with channels in 0, 4, .., 28 and
+    (NB, 2) int32 low-res colours with channels in 0, 8, .., 32, A == B in
+    the block rows by with by & 4 == 0 (so in the whole neighbourhood of
+    rows 1 and 2 of every 8)."""
+    rng = np.random.default_rng(seed)
+    nby, nbx = side // 4, side // 8
+    images = (4 * rng.integers(0, 8, (1, side, side, 4))).astype(np.uint8)
+    low = (8 * rng.integers(0, 5, (nby, nbx, 2, 4))).astype(np.uint8)
+    band = (np.arange(nby) & 4) == 0
+    low[band, :, 1] = low[band, :, 0]
+    return images, low.view(np.int32).reshape(nby * nbx, 2)
+
+
 def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     """The two HQ kernels' cases, at the inputs the HQ encoders give them:
     the prefix sums and the candidate words of the 1024^2 test image's
@@ -825,6 +972,10 @@ OCCUPANCY = {
     "etc1_hq_search": ("texcomp_etc1_hq_search_info", ((0, 1), "flip")),
     "etc1_encode": ("texcomp_etc1_encode_info", ((2, 0, 1, 3), "s")),
     "etc1_downsample": ("texcomp_etc1_downsample_info", ((2, 0, 1, 3), "s")),
+    "pvrtc_morph": ("texcomp_pvrtc_info", ((0,), "")),
+    "pvrtc_morph_batched": ("texcomp_pvrtc_info", ((1,), "")),
+    "pvrtc_upscale_modulate": ("texcomp_pvrtc_info", ((2,), "")),
+    "pvrtc_modes_pack": ("texcomp_pvrtc_info", ((3,), "")),
 }
 
 
@@ -882,7 +1033,11 @@ def measure_rates() -> None:
 #: the mangled name of their kernel.
 SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E",
         "dxt1_downsample": "downsample_kernelILb0E",
-        "dxt5_downsample": "downsample_kernelILb1E"}
+        "dxt5_downsample": "downsample_kernelILb1E",
+        "pvrtc_morph": "morph_kernelILb0E",
+        "pvrtc_morph_batched": "morph_kernelILb1E",
+        "pvrtc_upscale_modulate": "upscale_modulate_kernel",
+        "pvrtc_modes_pack": "modes_pack_kernel"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1036,19 +1191,60 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
     }
 
 
+def pvrtc_case_inputs() -> dict:
+    """The PVRTC kernels' cases beyond the 4096^2 images and the fleets, as
+    (B, H, W, 4) uint8 stacks on the card: "axis ties" (a 256^2 image of
+    :func:`pvrtc_tie_blocks`' axis, lightness and equal-spread ties, and a
+    stack of its four 128^2 quarters), "zero axes" (the same of its
+    zero-axis blocks), "small grids" (8^2, 16^2 and 32^2 images of tie
+    blocks, one-block-wide at 8^2, and a stack of 64 such 8^2 images)."""
+    ties = pvrtc_tie_blocks()
+    axis = np.concatenate([ties["axis ties"], ties["lightness ties"],
+                           ties["equal spreads"]])
+    out = {}
+    for label, blocks in (("axis ties", axis), ("zero axes", ties["zero axes"])):
+        img = pvrtc_block_image(blocks, 256)
+        out[label] = img[None]
+        out[f"{label}, quarters"] = img.reshape(2, 128, 2, 128, 4).transpose(
+            0, 2, 1, 3, 4).reshape(4, 128, 128, 4)
+    every = np.concatenate([axis, ties["zero axes"]])
+    for side in (8, 16, 32):
+        out[f"small grids {side}x{side}"] = pvrtc_block_image(
+            every[side:], side, seed=side)[None]
+    out["small grids 64 x 8x8"] = np.stack(
+        [pvrtc_block_image(every[k:], 8, seed=k) for k in range(64)])
+    return {label: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for label, v in out.items()}
+
+
 def pvrtc_kernel_cases(images: dict) -> dict:
     """The PVRTC kernels' cases; each stage's input comes from the kernel
-    before it (which phase 3 holds to its twin on the same inputs)."""
+    before it (which phase 3 holds to its twin on the same inputs), except
+    the "modulation ties" input of upscale + modulate
+    (:func:`pvrtc_modulation_ties`)."""
     image, tiles = images["random"], images["tiles"]
     other = torch.tensor([9, 200, 31, 77], dtype=torch.uint8, device="cuda")
     nby, nbx = SIZE // 4, SIZE // 8
+    extra = pvrtc_case_inputs()
+    single = ["axis ties", "zero axes", "small grids 8x8", "small grids 16x16",
+              "small grids 32x32"]
+    stacked = ["axis ties, quarters", "zero axes, quarters",
+               "small grids 64 x 8x8"]
     stack = {"random": image[None], "tiles": tiles[None],
              f"fleet {FLEET[0]}x{FLEET[1]}": images["fleet"],
-             f"fleet {SMALL_FLEET[0]}x{SMALL_FLEET[1]}": images["small fleet"]}
+             f"fleet {SMALL_FLEET[0]}x{SMALL_FLEET[1]}": images["small fleet"],
+             **extra}
     ab = {"random": pvrtc_cuda.pvrtc_morph_cuda(image, image[0, 0]),
           "tiles": pvrtc_cuda.pvrtc_morph_cuda(tiles, tiles[0, 0])}
-    for label in list(stack)[2:]:
+    for label in single:
+        ab[label] = pvrtc_cuda.pvrtc_morph_cuda(stack[label][0],
+                                                stack[label][0, 0, 0])
+    batched = list(stack)[2:4] + stacked
+    for label in batched:
         ab[label] = pvrtc_cuda.pvrtc_morph_batched_cuda(stack[label])
+    mod_images, mod_ab = pvrtc_modulation_ties()
+    stack["modulation ties"] = torch.from_numpy(mod_images).cuda()
+    ab["modulation ties"] = torch.from_numpy(mod_ab).cuda()
     mod = {label: pvrtc_cuda.pvrtc_upscale_modulate_cuda(stack[label], ab[label])
            for label in stack}
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -1060,9 +1256,13 @@ def pvrtc_kernel_cases(images: dict) -> dict:
         "pvrtc_morph": [
             ("random", (image, image[0, 0])),
             ("tiles", (tiles, tiles[0, 0])),
-            ("tiles, another fallback pixel", (tiles, other))],
+            ("tiles, another fallback pixel", (tiles, other))]
+            + [(label, (stack[label][0], stack[label][0, 0, 0]))
+               for label in single]
+            + [(f"{label}, another fallback pixel", (stack[label][0], other))
+               for label in single[:2]],
         "pvrtc_morph_batched": [
-            (label, (stack[label],)) for label in list(stack)[2:]],
+            (label, (stack[label],)) for label in batched],
         "pvrtc_upscale_modulate": [
             (label, (stack[label], ab[label])) for label in stack],
         "pvrtc_modes_pack": [
@@ -1555,29 +1755,45 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> None:
           f"plain; wall {times[0] * 1e3:.1f} ms", flush=True)
 
 
-def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 5) -> None:
+def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 20) -> None:
     """Where a 4096^2 PvrtcCompressor.compress() spends its time: the steps
-    it takes, on the host clock, synchronised after each device step."""
+    it takes, on the host clock, synchronised after each device step; for
+    each kernel step also the host time until its wrapper returns and the
+    device time between CUDA events recorded around the call."""
     nby, nbx = SIZE // 4, SIZE // 8
     names = ("host->device copy of the image", "morph kernel",
              "upscale + modulate kernel", "mode + pack kernel",
              "device->host copy of the payload", "host store of the payload")
     times = {k: [] for k in names}
+    returned = {k: [] for k in names[1:4]}
+    device = {k: [] for k in names[1:4]}
     for _ in range(runs):
         t = [time.perf_counter()]
+        events = []
 
         def step():
             torch.cuda.synchronize()
             t.append(time.perf_counter())
 
+        def kernel(name, launch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = launch()
+            end.record()
+            returned[name].append(time.perf_counter() - t0)
+            events.append((name, start, end))
+            step()
+            return out
+
         dev = h4._to_device(img, torch.device("cuda"))
         step()
-        ab = pvrtc_cuda.pvrtc_morph_cuda(dev, dev[0, 0])
-        step()
-        mod = pvrtc_cuda.pvrtc_upscale_modulate_cuda(dev[None], ab)
-        step()
-        rec = pvrtc_cuda.pvrtc_modes_pack_cuda(mod, ab, nby, nbx)
-        step()
+        ab = kernel(names[1], lambda: pvrtc_cuda.pvrtc_morph_cuda(dev, dev[0, 0]))
+        mod = kernel(names[2], lambda: pvrtc_cuda.pvrtc_upscale_modulate_cuda(
+            dev[None], ab))
+        rec = kernel(names[3], lambda: pvrtc_cuda.pvrtc_modes_pack_cuda(
+            mod, ab, nby, nbx))
         host = rec.cpu().numpy()
         step()
         payload = np.empty(SIZE * SIZE // 4, np.uint8)
@@ -1585,9 +1801,15 @@ def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 5) -> None:
         step()
         for k, a, b in zip(names, t, t[1:]):
             times[k].append(b - a)
+        for k, start, end in events:
+            device[k].append(start.elapsed_time(end) / 1e3)
+    ms = lambda v: f"{statistics.median(v) * 1e3:.3f}"
     print(f"[main] PVRTC compress() {SIZE}x{SIZE} stages on {gpu} (host clock, "
           f"ms, median of {runs}): " + "; ".join(
-              f"{k} {statistics.median(v) * 1e3:.3f}" for k, v in times.items()),
+              f"{k} {ms(v)}" for k, v in times.items())
+          + "; of each kernel step, its wrapper's return on the host clock / "
+          "its device time between CUDA events: " + "; ".join(
+              f"{k} {ms(returned[k])} / {ms(device[k])}" for k in device),
           flush=True)
 
 
