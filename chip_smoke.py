@@ -40,7 +40,12 @@ line is printed:
                 and another fallback pixel) and of "small grids" (8x8,
                 16x16 and 32x32 images, one block wide at 8x8); upscale +
                 modulate and mode + pack also of "modulation ties" (A == B,
-                pixels equidistant from two candidates);
+                pixels equidistant from two candidates); mode + pack also
+                of blocks at each mode threshold (pvrtc_mode_thresholds: 4
+                and 5 intermediate pixels, counters of 10 and 11, one
+                counter twice the other and one above it, both over 10) on
+                the 4096x4096 grid, one 8x8 image, and stacks of 64 8x8,
+                32 16x16 and 16 64x64 images;
                 the batched morph, upscale + modulate and mode + pack of a
                 fleet of 192 images of 512x512 and of 1024 of 64x64, of
                 the tie images' 128x128 quarters and of 64 8x8 images; the
@@ -95,6 +100,10 @@ line is printed:
                 Then the stage split of one 4096x4096 PVRTC compress(),
                 and the device time of one 1024x1024 HQ DXT1 and ETC1
                 compress under torch.profiler.
+
+main() does not run the probes: pvrtc_pack_probe(gpu, library) times the
+three designs of mode + pack, or a parent commit's kernel from its built
+library, against a copy_ of the same bytes.
 
 Before the last line it prints one JSON line with each kernel's launches
 in phase 5, its largest difference from its twin, its time, its twin's
@@ -258,19 +267,28 @@ _ETC_DOWN_DECODE_OPS = 4 * 412 + 48
 # reductions 76, indexing 20. Upscale + modulate per pixel 8 for its
 # channels, 64 for two 4-corner weighted sums of 4 channels, 32 for the two
 # blended candidates, 48 for four L1 distances, 8 for the early exit and
-# the store; per block 126 for the neighborhood. Mode + pack: 64 to unpack
-# 32 bytes, per pixel 10 for the three counters, 72 for the edges, mode,
-# colors, Z-order slot and indexing; then 96 for a 1bpp word (3 a pixel) or
-# 52 for a 2bpp one (16 stored pixels and the two flags), as each block's
-# mode in this run's output says.
+# the store; per block 126 for the neighborhood. Mode + pack works four
+# pixels a word and computes both modulation words: per block row two
+# __byte_perm and four byte SADs with their adds 14, the 1bpp product 4 (two
+# shifts, a mask, a multiply) and the 2bpp one 2 (a __byte_perm, a
+# multiply); per block the intermediate count 21 (two packed words 12, two
+# xor-shift-masks, two popcounts, an add), the two top-byte gathers 6, the
+# mode and the flags 16, the neighbours' indices, loads and column 0 16,
+# the color word 40, indexing, loads and the store 41. Its scalar
+# count (kept in kernel_bound's note): 64 to unpack 32 bytes, per pixel 10
+# for the three counters, 72 for the edges, mode, colors, Z-order slot and
+# indexing; then 96 for a 1bpp word (3 a pixel) or 52 for a 2bpp one (16
+# stored pixels and the two flags), as each block's mode in this run's
+# output says.
 _PVRTC_MORPH_OPS = 32 * 22 + 5 * 17 + 7 + 76 + 20
 _PVRTC_UPMOD_OPS = 32 * 65 + 4 * 36 + 84 + 20
+_PVRTC_PACK_OPS = 4 * (14 + 4 + 2) + 21 + 6 + 16 + 16 + 40 + 41
 _PVRTC_SCALAR_OPS = {
     "pvrtc_morph": 32 * 50 + 5 * 35 + 25 + 76 + 20,
     "pvrtc_morph_batched": 32 * 50 + 5 * 35 + 25 + 76 + 20,
     "pvrtc_upscale_modulate": 32 * (8 + 64 + 32 + 48 + 8) + 126,
 }
-_PVRTC_PACK_OPS = 64 + 32 * 10 + 72
+_PVRTC_PACK_SCALAR_OPS = 64 + 32 * 10 + 72
 _PVRTC_PACK_1BPP_OPS, _PVRTC_PACK_2BPP_OPS = 96, 52
 # HQ cluster-fit top 4, per partition: 3 to scale the cuts, 6 adds for u,
 # 10 for A and B, 17 for each of the two split terms (a conversion, two
@@ -318,13 +336,19 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _pvrtc_pack_ops(out: torch.Tensor) -> int:
-    """Mode + pack operations of the records ``out``: 1bpp blocks have
-    bit 0 of the color word (byte 4) clear."""
-    n = out.shape[0]
-    n1 = int(((out[:, 4] & 1) == 0).sum())
-    return (n * _PVRTC_PACK_OPS + n1 * _PVRTC_PACK_1BPP_OPS
-            + (n - n1) * _PVRTC_PACK_2BPP_OPS)
+def _pvrtc_scalar_ops(name: str, out: torch.Tensor):
+    """The scalar count of a PVRTC kernel's call, the one it was held to
+    before its redesign (None for the other kernels); for mode + pack from
+    the records ``out``, whose 1bpp blocks have bit 0 of the color word
+    (byte 4) clear."""
+    if name == "pvrtc_modes_pack":
+        n = out.shape[0]
+        n1 = int(((out[:, 4] & 1) == 0).sum())
+        return (n * _PVRTC_PACK_SCALAR_OPS + n1 * _PVRTC_PACK_1BPP_OPS
+                + (n - n1) * _PVRTC_PACK_2BPP_OPS)
+    if name in _PVRTC_SCALAR_OPS:
+        return out.shape[0] * _PVRTC_SCALAR_OPS[name]
+    return None
 
 
 def packed_pairs(name: str, args: tuple, out):
@@ -372,7 +396,7 @@ def kernel_work(name: str, args: tuple, out):
     elif name == "pvrtc_upscale_modulate":
         ops = out.shape[0] * _PVRTC_UPMOD_OPS
     elif name == "pvrtc_modes_pack":
-        ops = _pvrtc_pack_ops(out)
+        ops = out.shape[0] * _PVRTC_PACK_OPS
     elif name == "etc1_encode":
         ops = n_out * _ETC_ENCODE_OPS[args[3]]
     elif name == "etc1_downsample":
@@ -399,16 +423,16 @@ def bound(nbytes: int, ops: int, pairs=None):
 
 def kernel_bound(name: str, args: tuple, out):
     """(bound_ms, bound_by, note) of one call: the packed bound for the
-    packed kernels (csrc/etc.cu's and the PVRTC morph and upscale +
-    modulate), with their scalar-count bound in the note; the scalar-count
-    bound for the others."""
+    packed kernels (csrc/etc.cu's and the four PVRTC kernels), with their
+    scalar-count bound in the note; the scalar-count bound for the
+    others."""
     nbytes, ops = kernel_work(name, args, out)
     pairs = packed_pairs(name, args, out)
     if pairs is None:
         note = f"{nbytes / 2**20:.1f} MiB, {ops / 1e9:.3f} G int ops"
-        if name in _PVRTC_SCALAR_OPS:
-            scalar_ms, scalar_by = bound(
-                nbytes, out.shape[0] * _PVRTC_SCALAR_OPS[name])
+        scalar = _pvrtc_scalar_ops(name, out)
+        if scalar is not None:
+            scalar_ms, scalar_by = bound(nbytes, scalar)
             note += f"; the scalar-count bound {scalar_ms:.4f} ms by {scalar_by}"
         return (*bound(nbytes, ops), note)
     decode = out.shape[0] * _ETC_DOWN_DECODE_OPS if name == "etc1_downsample" else 0
@@ -916,6 +940,118 @@ def pvrtc_modulation_ties(side: int = 256, seed: int = 37):
     return images, low.view(np.int32).reshape(nby * nbx, 2)
 
 
+def _relu(x):
+    return np.maximum(x, 0)
+
+
+#: The mode decision's thresholds (CalculateBlockModulationMode,
+#: pvrtc_compressor.cc:395-447): label -> (a penalty of a block's
+#: intermediate count i and crossed counters v (vertical_count, the deltas
+#: to the right) and h (horizontal_count, the deltas below), 0 exactly when
+#: the block is at the threshold; the mode it then takes: 0 1bpp, 1
+#: average4, 2 vertical, 3 horizontal).
+PVRTC_MODE_THRESHOLDS = {
+    "4 intermediate": (
+        lambda i, v, h: abs(i - 4) + _relu(11 - v) + _relu(2 * h + 1 - v), 0),
+    "5 intermediate": (
+        lambda i, v, h: abs(i - 5) + _relu(11 - v) + _relu(2 * h + 1 - v), 2),
+    "vertical 10": (
+        lambda i, v, h: _relu(5 - i) + abs(v - 10) + _relu(2 * h + 1 - v), 1),
+    "vertical 11": (
+        lambda i, v, h: _relu(5 - i) + abs(v - 11) + _relu(2 * h + 1 - v), 2),
+    "horizontal 10": (
+        lambda i, v, h: _relu(5 - i) + abs(h - 10) + _relu(2 * v + 1 - h), 1),
+    "horizontal 11": (
+        lambda i, v, h: _relu(5 - i) + abs(h - 11) + _relu(2 * v + 1 - h), 3),
+    "vertical twice horizontal": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - v) + abs(v - 2 * h), 1),
+    "vertical above twice": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - v) + abs(v - 2 * h - 1), 2),
+    "horizontal twice vertical": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - h) + abs(h - 2 * v), 1),
+    "horizontal above twice": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - h) + abs(h - 2 * v - 1), 3),
+    "both over 10": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - v) + _relu(11 - h)
+        + _relu(v - 2 * h) + _relu(h - 2 * v), 1),
+    "both over 10, vertical": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - h) + _relu(2 * h + 1 - v), 2),
+    "both over 10, horizontal": (
+        lambda i, v, h: _relu(5 - i) + _relu(11 - v) + _relu(2 * v + 1 - h), 3),
+}
+
+
+def pvrtc_mode_counts(blocks: np.ndarray, right: np.ndarray,
+                      below: np.ndarray):
+    """(intermediate, vertical_count, horizontal_count) of (..., 4, 8)
+    modulation blocks whose right neighbours' column 0 is ``right``
+    (..., 4) and lower neighbours' row 0 is ``below`` (..., 8)."""
+    nh = np.concatenate([blocks[..., 1:], right[..., None]], axis=-1)
+    nv = np.concatenate([blocks[..., 1:, :], below[..., None, :]], axis=-2)
+    return (((blocks == 1) | (blocks == 2)).sum((-2, -1)),
+            np.abs(blocks - nh).sum((-2, -1)), np.abs(blocks - nv).sum((-2, -1)))
+
+
+def pvrtc_mode_thresholds(side: int, batch: int = 1, seed: int = 41,
+                          steps: int = 2000):
+    """Modulation at the mode thresholds of :data:`PVRTC_MODE_THRESHOLDS`:
+    (batch * NB, 32) uint8 values 0..3 of ``batch`` (side, side) images,
+    blocks row-major, pixel (py, px) at py * 8 + px, and (batch * NB,) the
+    index of the threshold each block is at, or -1.
+
+    The blocks at even (by, bx) are each aimed at one threshold, in turn;
+    the others are random, with row 0 and column 0 one random value a
+    block. An aimed block's counters read its right neighbour's column 0
+    and its lower neighbour's row 0, never an aimed block's, so each is
+    aimed alone: a random walk from a block of even rows (for the
+    horizontal thresholds, of even columns) changes one pixel a step and
+    keeps a change that does not raise the block's penalty, or one in 50
+    at random; a block not at its threshold after ``steps`` steps is
+    labelled -1. On a one-block-wide grid a block is its own right
+    neighbour."""
+    rng = np.random.default_rng(seed)
+    nby, nbx = side // 4, side // 8
+    m = rng.integers(0, 4, (batch, nby, nbx, 4, 8))
+    edge = np.zeros((4, 8), bool)
+    edge[0] = edge[:, 0] = True
+    m = np.where(edge, rng.integers(0, 4, (batch, nby, nbx, 1, 1)), m)
+    by, bx = np.meshgrid(np.arange(nby), np.arange(nbx), indexing="ij")
+    aimed = np.broadcast_to((by % 2 == 0) & (bx % 2 == 0), (batch, nby, nbx))
+    labels = list(PVRTC_MODE_THRESHOLDS)
+    target = np.arange(int(aimed.sum())) % len(labels)
+    below = np.roll(m, -1, axis=1)[..., 0, :][aimed]
+    right = np.roll(m, -1, axis=2)[..., :, 0][aimed] if nbx > 1 else None
+
+    def penalty(blocks):
+        counts = pvrtc_mode_counts(
+            blocks, blocks[..., :, 0] if right is None else right, below)
+        p = np.zeros(len(blocks), np.int64)
+        for k, label in enumerate(labels):
+            p = np.where(target == k, PVRTC_MODE_THRESHOLDS[label][0](*counts), p)
+        return p
+
+    horizontal = np.array([labels[k].startswith("horizontal") for k in target])
+    cols = m[aimed][..., :, :1] if right is None else right[..., None]
+    blocks = np.where(horizontal[:, None, None], np.repeat(cols, 8, axis=2),
+                      np.repeat(below[:, None, :], 4, axis=1))
+    pen = penalty(blocks)
+    n = np.arange(len(blocks))
+    for _ in range(steps):
+        if not pen.any():
+            break
+        step = blocks.copy()
+        step[n, rng.integers(0, 4, len(n)), rng.integers(0, 8, len(n))] = \
+            rng.integers(0, 4, len(n))
+        new = penalty(step)
+        take = ((new <= pen) | (rng.random(len(n)) < 0.02)) & (pen > 0)
+        blocks = np.where(take[:, None, None], step, blocks)
+        pen = np.where(take, new, pen)
+    m[aimed] = blocks
+    label = np.full(aimed.shape, -1)
+    label[aimed] = np.where(pen == 0, target, -1)
+    return m.reshape(-1, 32).astype(np.uint8), label.reshape(-1)
+
+
 def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     """The two HQ kernels' cases, at the inputs the HQ encoders give them:
     the prefix sums and the candidate words of the 1024^2 test image's
@@ -1037,7 +1173,7 @@ SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E"
         "pvrtc_morph": "morph_kernelILb0E",
         "pvrtc_morph_batched": "morph_kernelILb1E",
         "pvrtc_upscale_modulate": "upscale_modulate_kernel",
-        "pvrtc_modes_pack": "modes_pack_kernel"}
+        "pvrtc_modes_pack": "modes_pack_kernelILi1E"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1267,8 +1403,36 @@ def pvrtc_kernel_cases(images: dict) -> dict:
             (label, (stack[label], ab[label])) for label in stack],
         "pvrtc_modes_pack": [
             (label, (mod[label], ab[label], *grid[label])) for label in stack]
-            + [("random modulation", (rand_mod, ab["random"], nby, nbx))],
+            + [("random modulation", (rand_mod, ab["random"], nby, nbx))]
+            + pvrtc_threshold_cases(),
     }
+
+
+def pvrtc_threshold_cases() -> list:
+    """Mode + pack's cases at the mode thresholds
+    (:func:`pvrtc_mode_thresholds`), as [(label, (mod, ab, nby, nbx))] on
+    the card: a 256^2 image's blocks tiled over the 4096^2 grid (whose wrap
+    is then the small image's), one 8^2 image (one block wide, 30 spare
+    lanes in its warp), 64 8^2 images, 32 16^2 images (a warp spans four)
+    and 16 64^2 images (a CTA spans two); ab random words, A and B opaque in
+    every third block."""
+    rng = np.random.default_rng(43)
+    cases = []
+    for label, side, batch in (("4096^2 grid", 256, 1), ("8x8", 8, 1),
+                               ("64 x 8x8", 8, 64), ("32 x 16x16", 16, 32),
+                               ("16 x 64x64", 64, 16)):
+        mod, _ = pvrtc_mode_thresholds(side, batch)
+        nby, nbx = side // 4, side // 8
+        if side == 256:
+            mod = np.tile(mod.reshape(nby, nbx, 32),
+                          (SIZE // side, SIZE // side, 1)).reshape(-1, 32)
+            nby, nbx = SIZE // 4, SIZE // 8
+        ab = rng.integers(0, 1 << 32, (len(mod), 2), dtype=np.uint64).astype(np.uint32)
+        ab[::3] |= 0xFF000000
+        cases.append((f"mode thresholds, {label}",
+                      (torch.from_numpy(mod).cuda(),
+                       torch.from_numpy(ab.view(np.int32)).cuda(), nby, nbx)))
+    return cases
 
 
 def _unfused_level(name: str, args: tuple):
@@ -1811,6 +1975,96 @@ def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 20) -> None:
           "its device time between CUDA events: " + "; ".join(
               f"{k} {ms(returned[k])} / {ms(device[k])}" for k in device),
           flush=True)
+
+
+#: The designs of csrc/pvrtc.cu's mode + pack (PackDesign), as
+#: texcomp_pvrtc_modes_pack_design numbers them.
+PACK_DESIGNS = {0: "slot threads, shuffled neighbours",
+                1: "slot threads, loaded neighbours",
+                2: "row-major threads, loaded neighbours"}
+
+
+def _profiled_ms(fn, kernel: str, runs: int) -> str:
+    """The median device time torch.profiler reads for the kernels whose
+    name holds ``kernel`` over ``runs`` calls of ``fn``, each after an L2
+    flush as in cuda_time_ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return f"{statistics.median(times):.4f} ms" if times else "not measured"
+
+
+def pvrtc_pack_probe(gpu: str, library=None, runs: int = 20) -> None:
+    """Times mode + pack as the library at ``library`` (by default this
+    tree's build) has it, on the modulation and colors of the 4096^2 random
+    image and of the 192 x 512^2 fleet (made by the plain twins): each of
+    :data:`PACK_DESIGNS` where the library has texcomp_pvrtc_modes_pack_design
+    (this tree's entry point launches design 1), else its
+    texcomp_pvrtc_modes_pack. Prints for each the CUDA-event median (L2
+    flushed, as phase 3 times), the device time torch.profiler reads, and
+    the kernel's registers, CTAs and SASS count; every output must equal
+    the twin's. To time a parent commit's kernel in the same process, build
+    its library in its checkout (``texcomp_torch.ops._build.load()``) and
+    pass that library's path."""
+    path = str(library or _build.library_path())
+    lib = ctypes.CDLL(path) if library else _build.load()
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if hasattr(lib, "texcomp_pvrtc_modes_pack_design"):
+        lib.texcomp_pvrtc_modes_pack_design.argtypes = [i, p, p, i, i, i, p, p]
+        calls = [(f"design {d} ({what})", functools.partial(
+            lib.texcomp_pvrtc_modes_pack_design, d), f"modes_pack_kernelILi{d}E")
+            for d, what in PACK_DESIGNS.items()]
+    else:
+        lib.texcomp_pvrtc_modes_pack.argtypes = [p, p, i, i, i, p, p]
+        calls = [("entry point", lib.texcomp_pvrtc_modes_pack,
+                  "modes_pack_kernel")]
+    pv = pvrtc_images(torch.from_numpy(make_image(2, SIZE, SIZE, 4)).cuda())
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, images in ((f"{SIZE}x{SIZE} random", pv["random"][None]),
+                          (f"fleet {FLEET[0]}x{FLEET[1]}", pv["fleet"])):
+        ab = pvrtc_cuda.pvrtc_morph_batched_plain(images)
+        mod = pvrtc_cuda.pvrtc_upscale_modulate_plain(images, ab)
+        nby, nbx = images.shape[1] // 4, images.shape[2] // 8
+        want = pvrtc_cuda.pvrtc_modes_pack_plain(mod, ab, nby, nbx)
+        parts = []
+        for what, fn, kernel in calls:
+            out = torch.empty_like(want)
+
+            def call():
+                rc = fn(mod.data_ptr(), ab.data_ptr(), images.shape[0], nby,
+                        nbx, out.data_ptr(), stream)
+                if rc != 0:
+                    fail(f"mode + pack probe, {what}: launch error {rc}")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                fail(f"mode + pack probe, {what} [{label}] differs from the twin")
+            parts.append(f"{what} {cuda_time_ms(call, repeats=runs):.4f} ms "
+                         f"(profiler {_profiled_ms(call, 'modes_pack', runs)})")
+        # A yardstick: one copy_ that reads and writes as many bytes as the
+        # call moves.
+        src = torch.empty(_nbytes(mod, ab, want) // 2, dtype=torch.uint8,
+                          device="cuda")
+        dst = torch.empty_like(src)
+        parts.append(f"copy_ of {src.numel() / 2**20:.1f} MiB "
+                     f"{cuda_time_ms(lambda: dst.copy_(src), repeats=runs):.4f} "
+                     f"ms (profiler "
+                     f"{_profiled_ms(lambda: dst.copy_(src), 'Memcpy', runs)})")
+        print(f"[probe] mode + pack [{label}] of {path} on {gpu}, equal to "
+              f"the twin; CUDA-event median of {runs}: {'; '.join(parts)}",
+              flush=True)
+    for what, _, kernel in calls:
+        print(f"[probe] {what}: {library_occupancy(kernel, path)}; SASS "
+              f"{sass_opcodes(kernel, path)}", flush=True)
 
 
 def hq_device_split(images: dict, gpu: str) -> None:

@@ -15,6 +15,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -717,21 +719,6 @@ downsample_kernel(const uint8_t* __restrict__ src, int nby, int nbx,
 
 inline int grid_for(long long n) { return int((n + kThreads - 1) / kThreads); }
 
-// Registers per thread, static shared memory in bytes, and resident CTAs
-// of kThreads per SM of kernel fn, into out[0..2].
-int kernel_info(const void* fn, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, 0);
-  if (err != cudaSuccess) return int(err);
-  out[0] = attr.numRegs;
-  out[1] = int(attr.sharedSizeBytes);
-  out[2] = ctas;
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -796,17 +783,17 @@ int texcomp_dxt5_downsample(const void* src, int nby, int nbx, const void* lut,
 // Registers per thread, static shared memory in bytes, and resident CTAs
 // per SM of the DXT1 (dxt5 = 0) or DXT5 fused level, into out[0..2].
 int texcomp_dxt_downsample_info(int dxt5, int* out) {
-  return kernel_info(dxt5 ? reinterpret_cast<const void*>(downsample_kernel<true>)
-                          : reinterpret_cast<const void*>(downsample_kernel<false>),
-                     out);
+  const void* fn = dxt5 ? reinterpret_cast<const void*>(downsample_kernel<true>)
+                        : reinterpret_cast<const void*>(downsample_kernel<false>);
+  return texcomp::kernel_info(fn, kThreads, out);
 }
 
 // Registers per thread, static shared memory in bytes, and resident CTAs
 // per SM of the DXT1 (dxt5 = 0) or DXT5 encode, into out[0..2].
 int texcomp_dxt_encode_info(int dxt5, int* out) {
-  return kernel_info(dxt5 ? reinterpret_cast<const void*>(encode_kernel<true>)
-                          : reinterpret_cast<const void*>(encode_kernel<false>),
-                     out);
+  const void* fn = dxt5 ? reinterpret_cast<const void*>(encode_kernel<true>)
+                        : reinterpret_cast<const void*>(encode_kernel<false>);
+  return texcomp::kernel_info(fn, kThreads, out);
 }
 
 const char* texcomp_cuda_error_string(int code) {

@@ -47,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -277,17 +279,8 @@ int texcomp_dxt_hq_cluster_topk4(const void* prefix, int n, const void* cuts,
 // Registers per thread, static shared memory in bytes, and resident CTAs
 // per SM of the kernel, into out[0..2].
 int texcomp_dxt_hq_cluster_topk4_info(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, cluster_topk4_kernel);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, cluster_topk4_kernel, kThreads, 0);
-  if (err != cudaSuccess) return int(err);
-  out[0] = attr.numRegs;
-  out[1] = int(attr.sharedSizeBytes);
-  out[2] = ctas;
-  return 0;
+  return texcomp::kernel_info(
+      reinterpret_cast<const void*>(cluster_topk4_kernel), kThreads, out);
 }
 
 }  // extern "C"

@@ -27,6 +27,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -607,8 +609,6 @@ downsample_kernel(const uint8_t* __restrict__ src, int nby, int nbx,
   reinterpret_cast<uint2*>(out)[n] = encode_block<kStrategy>(px);
 }
 
-
-
 // ---------------------------------------------------------------------------
 // The HQ search (quality="high").
 //
@@ -962,21 +962,6 @@ void launch_downsample(const void* src, int nby, int nbx, void* out,
       static_cast<const uint8_t*>(src), nby, nbx, static_cast<uint8_t*>(out));
 }
 
-// Registers per thread, static shared memory in bytes, and resident CTAs
-// of kThreads per SM of kernel fn, into out[0..2].
-int kernel_info(const void* fn, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, 0);
-  if (err != cudaSuccess) return int(err);
-  out[0] = attr.numRegs;
-  out[1] = int(attr.sharedSizeBytes);
-  out[2] = ctas;
-  return 0;
-}
-
 // The encode kernel of a strategy, or with `fused` its fused level's.
 template <int kStrategy>
 const void* strategy_kernel(bool fused) {
@@ -1067,18 +1052,20 @@ int texcomp_etc1_hq_search(const void* px, int n, const void* cands,
 // kernel, into out[0..2].
 int texcomp_etc1_encode_info(int strategy, int* out) {
   const void* fn = strategy_kernel(strategy, false);
-  return fn ? kernel_info(fn, out) : int(cudaErrorInvalidValue);
+  return fn ? texcomp::kernel_info(fn, kThreads, out)
+            : int(cudaErrorInvalidValue);
 }
 
 int texcomp_etc1_downsample_info(int strategy, int* out) {
   const void* fn = strategy_kernel(strategy, true);
-  return fn ? kernel_info(fn, out) : int(cudaErrorInvalidValue);
+  return fn ? texcomp::kernel_info(fn, kThreads, out)
+            : int(cudaErrorInvalidValue);
 }
 
 int texcomp_etc1_hq_search_info(int flip, int* out) {
-  return kernel_info(flip ? reinterpret_cast<const void*>(hq_search_kernel<true>)
-                          : reinterpret_cast<const void*>(hq_search_kernel<false>),
-                     out);
+  const void* fn = flip ? reinterpret_cast<const void*>(hq_search_kernel<true>)
+                        : reinterpret_cast<const void*>(hq_search_kernel<false>);
+  return texcomp::kernel_info(fn, kThreads, out);
 }
 
 // Launches rate micro-kernel `kind` (0-5) on `ctas` CTAs of kThreads, each

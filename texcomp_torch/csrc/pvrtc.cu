@@ -26,6 +26,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -316,6 +318,39 @@ __device__ __forceinline__ uint32_t spread_bits(uint32_t v) {
   return v;
 }
 
+// The even bits of v, packed: the inverse of spread_bits.
+__device__ __forceinline__ uint32_t compact_bits(uint32_t v) {
+  v &= 0x55555555u;
+  v = (v | (v >> 1)) & 0x33333333u;
+  v = (v | (v >> 2)) & 0x0F0F0F0Fu;
+  v = (v | (v >> 4)) & 0x00FF00FFu;
+  return (v | (v >> 8)) & 0xFFFFu;
+}
+
+// Byte 0 of each of four words, as bytes 0-3 of one: a block's pixel 0 of
+// rows 0-3 from its words 0, 2, 4 and 6.
+__device__ __forceinline__ uint32_t column0(uint32_t w0, uint32_t w2,
+                                            uint32_t w4, uint32_t w6) {
+  return __byte_perm(__byte_perm(w0, w2, 0x40u), __byte_perm(w4, w6, 0x40u),
+                     0x5410u);
+}
+
+// Byte 3 of each of four words, as bytes 0-3 of one.
+__device__ __forceinline__ uint32_t top_bytes(const uint32_t (&p)[4]) {
+  return __byte_perm(__byte_perm(p[0], p[1], 0x73u),
+                     __byte_perm(p[2], p[3], 0x73u), 0x5410u);
+}
+
+// Designs of mode + pack (the thread layout and where the neighbours' bytes
+// come from). The entry point launches kSlotLoad; chip_smoke.py's
+// pvrtc_pack_probe times all three on the same inputs (PERF.md keeps the
+// readings).
+enum PackDesign {
+  kSlotShuffle = 0,  // thread = Z-order slot, neighbours by __shfl_sync
+  kSlotLoad = 1,     // thread = Z-order slot, neighbours loaded
+  kRowMajor = 2,     // thread = row-major block, neighbours loaded
+};
+
 // Replaces texcomp/ops/pvrtc_fast.py:_mpc_kernel (_modes_pack_colors_body),
 // and with it _mode_edges and the Z-order permutation (_zorder_words).
 //
@@ -330,68 +365,126 @@ __device__ __forceinline__ uint32_t spread_bits(uint32_t v) {
 // x-bits-odd of (bx, by): a bijection onto [0, nb) for the (2 * nbx, nbx)
 // power-of-two grids of square images, which the wrapper checks.
 //
+// Thread t of image b takes slot t (kSlotLoad, kSlotShuffle): (by, bx) are
+// the even and odd bits of t, the image a shift, since nb = 2 nbx^2 is a
+// power of two, and the record one coalesced 8-byte store. A warp's 32
+// slots are 8 block rows of 4 blocks, so its modulation reads are 8 whole
+// 128-byte lines, and a block's right neighbour (bx + 1) lies in them
+// unless bx = 3 (mod 4), its lower one unless by = 7 (mod 8): the
+// neighbours' loads are L1 or L2 hits. kSlotShuffle instead takes a
+// neighbour in the warp by shuffle from the lane that holds it, the lane
+// found by dilated increments of t's x and y bits; images of fewer than 32
+// blocks lie whole in a warp, and a spare lane past the last block takes
+// part in the shuffles and stores nothing. kRowMajor: thread n takes
+// row-major block n and stores its record to its slot, a scattered store.
+//
+// Modulation values are 0..3, as upscale + modulate writes them, so a
+// block row is two words of four pixels and the arithmetic goes four
+// pixels a word:
+//   - the counters are byte SADs: to the right, a word against itself
+//     moved one byte, filled from the next word or the right neighbour's
+//     pixel; below, a word against the next row's (or the lower
+//     neighbour's row 0), 16 __vsadu4 a block;
+//   - m in {1, 2} is bit 0 of m ^ (m >> 1): the 8 words two bits a field
+//     into two words, two popcounts;
+//   - the 1bpp word (bit py * 8 + px = m >> 1): per row, bit 1 of the
+//     first word's bytes to bits 0, 8, 16, 24 and of the second's to 4,
+//     12, 20, 28, and one multiply by 0x01020408 gathers the 8 bits into
+//     byte 3;
+//   - the 2bpp word (bits 8 py + 2 j = m at px = 2 j + (py & 1)): per row
+//     the checkerboard's four bytes by __byte_perm, and one multiply by
+//     0x01041040 gathers their 2-bit fields into byte 3.
+// Both multiplies' terms land on distinct bits below bit 32, so nothing
+// carries; tests/test_torch_pvrtc_modes.py models each step.
+//
 // Bound on the H100: memory traffic. At 4096^2 it reads 16 MiB of
 // modulation and 4 MiB of colors and writes 4 MiB, 7.5 us at 3.35 TB/s;
-// about 510 (2bpp modes) to 550 (1bpp) integer operations a block.
+// about 220 integer operations a block (chip_smoke.py counts them).
+template <int kDesign>
 __global__ void __launch_bounds__(kThreads)
 modes_pack_kernel(const uint8_t* __restrict__ mod, const uint2* __restrict__ ab,
-                  int batch, int nby, int nbx, uint2* __restrict__ out) {
-  const long long nb = (long long)nby * nbx;
-  const long long n = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (n >= batch * nb) return;
-  const long long image = n / nb;
-  const int rem = int(n - image * nb);
-  const int by = rem / nbx, bx = rem % nbx;
-  const long long first = image * nb;
+                  long long total, int nbx, uint2* __restrict__ out) {
+  const int lx = __ffs(nbx) - 1;
+  const uint32_t last = (2u << (2 * lx)) - 1;  // nb - 1
+  long long n = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const bool live = n < total;
+  if (kDesign != kSlotShuffle && !live) return;
+  if (!live) n = total - 1;
+  const long long first = n & ~(long long)last;
+  const uint32_t t = uint32_t(n) & last;
+  uint32_t by, bx;
+  if (kDesign == kRowMajor) {
+    by = t >> lx;
+    bx = t & (nbx - 1);
+  } else {
+    by = compact_bits(t);
+    bx = compact_bits(t >> 1);
+  }
+  const long long row = first + ((long long)by << lx);
+  const uint32_t rx = (bx + 1) & (nbx - 1);
+  const uint32_t ry = (by + 1) & (2 * nbx - 1);
+  const uint4* blocks = reinterpret_cast<const uint4*>(mod);
 
-  int m[32];
+  uint32_t w[8];  // row py: pixels 0-3 in w[2 py], 4-7 in w[2 py + 1]
   {
-    const uint4* src = reinterpret_cast<const uint4*>(mod + 32 * n);
-    const uint4 q0 = src[0], q1 = src[1];
-    const uint32_t words[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-    for (int s = 0; s < 32; ++s) m[s] = (words[s >> 2] >> (8 * (s & 3))) & 255;
+    const uint4 q0 = blocks[2 * (row + bx)], q1 = blocks[2 * (row + bx) + 1];
+    w[0] = q0.x; w[1] = q0.y; w[2] = q0.z; w[3] = q0.w;
+    w[4] = q1.x; w[5] = q1.y; w[6] = q1.z; w[7] = q1.w;
   }
-  const uint8_t* right =
-      mod + 32 * (first + (long long)by * nbx + (bx + 1) % nbx);
-  const uint2 below = *reinterpret_cast<const uint2*>(
-      mod + 32 * (first + (long long)((by + 1) % nby) * nbx + bx));
+  // The right neighbour's pixel 0 of rows 0-3 (byte py), the lower
+  // neighbour's row 0.
+  uint32_t right = 0, below0 = 0, below1 = 0;
+  bool load_right = true, load_below = true;
+  if (kDesign == kSlotShuffle) {
+    const uint32_t xs = 0xAAAAAAAAu & last, ys = 0x55555555u & last;
+    const uint32_t sr = (((t | ~xs) + 2) & xs) | (t & ys);
+    const uint32_t sb = (((t | ~ys) + 1) & ys) | (t & xs);
+    const uint32_t lane0 = uint32_t(first);
+    right = __shfl_sync(0xFFFFFFFFu, column0(w[0], w[2], w[4], w[6]),
+                        (lane0 + sr) & 31);
+    below0 = __shfl_sync(0xFFFFFFFFu, w[0], (lane0 + sb) & 31);
+    below1 = __shfl_sync(0xFFFFFFFFu, w[1], (lane0 + sb) & 31);
+    load_right = (sr ^ t) >> 5;
+    load_below = (sb ^ t) >> 5;
+  }
+  if (load_right) {
+    const uint4 r0 = blocks[2 * (row + rx)], r1 = blocks[2 * (row + rx) + 1];
+    right = column0(r0.x, r0.z, r1.x, r1.z);
+  }
+  if (load_below) {
+    const uint2 b = reinterpret_cast<const uint2*>(
+        mod)[4 * (first + ((long long)ry << lx) + bx)];
+    below0 = b.x;
+    below1 = b.y;
+  }
 
-  int intermediate = 0, horizontal_count = 0, vertical_count = 0;
+  uint32_t vertical_count = 0, horizontal_count = 0;  // crossed
+  uint32_t one[4], two[4];
 #pragma unroll
-  for (int s = 0; s < 32; ++s) {
-    const int py = s >> 3, px = s & 7;
-    const int nh = px < 7 ? m[s + 1] : int(right[8 * py]);
-    const int nv = py < 3 ? m[s + 8]
-                          : int(((px < 4 ? below.x : below.y) >> (8 * (px & 3))) & 255);
-    intermediate += (m[s] == 1) | (m[s] == 2);
-    horizontal_count += abs(m[s] - nv);  // crossed, per the reference
-    vertical_count += abs(m[s] - nh);
+  for (int py = 0; py < 4; ++py) {
+    const uint32_t a = w[2 * py], b = w[2 * py + 1];
+    vertical_count += __vsadu4(a, __byte_perm(a, b, 0x4321u));
+    vertical_count += __vsadu4(b, __byte_perm(b, right, 0x4321u + 0x1000u * py));
+    horizontal_count += __vsadu4(a, py < 3 ? w[2 * py + 2] : below0);
+    horizontal_count += __vsadu4(b, py < 3 ? w[2 * py + 3] : below1);
+    one[py] = (((a >> 1) | (b << 3)) & 0x11111111u) * 0x01020408u;
+    two[py] = __byte_perm(a, b, py & 1 ? 0x7531u : 0x6420u) * 0x01041040u;
   }
+  const uint32_t z0 = w[0] | (w[1] << 2) | (w[2] << 4) | (w[3] << 6);
+  const uint32_t z1 = w[4] | (w[5] << 2) | (w[6] << 4) | (w[7] << 6);
+  const int intermediate = __popc((z0 ^ (z0 >> 1)) & 0x55555555u) +
+                           __popc((z1 ^ (z1 >> 1)) & 0x55555555u);
   int mode;  // 0 = 1bpp, 1 = average4, 2 = vertical, 3 = horizontal
   if (intermediate <= 4) mode = 0;
   else if (vertical_count > 10 && vertical_count > 2 * horizontal_count) mode = 2;
   else if (horizontal_count > 10 && horizontal_count > 2 * vertical_count) mode = 3;
   else mode = 1;
+  const uint32_t mod_word =
+      mode == 0 ? top_bytes(one)
+                : (top_bytes(two) & ~0x00100001u) | (mode != 1 ? 1u : 0u) |
+                      (mode == 2 ? 1u << 20 : 0u);
 
-  uint32_t mod_word = 0;
-  if (mode == 0) {
-#pragma unroll
-    for (int s = 0; s < 32; ++s) mod_word |= uint32_t(m[s] >> 1) << s;
-  } else {
-#pragma unroll
-    for (int s = 0; s < 32; ++s) {
-      const int py = s >> 3, px = s & 7;
-      if ((px ^ py) & 1) continue;  // checkerboard: stored pixels only
-      const int pos = 2 * (py * 4 + (px >> 1));
-      uint32_t bits = m[s];
-      if (pos == 0) bits = mode == 1 ? (bits & 2) : (bits | 1);
-      if (pos == 20) bits = mode == 2 ? (bits | 1) : (bits & 2);
-      mod_word |= bits << pos;
-    }
-  }
-
-  const uint2 c = ab[n];
+  const uint2 c = ab[row + bx];
   const int ar = chan(c.x, 0), ag = chan(c.x, 1), ab_ = chan(c.x, 2),
             aa = chan(c.x, 3);
   const int br = chan(c.y, 0), bg = chan(c.y, 1), bb = chan(c.y, 2),
@@ -408,23 +501,25 @@ modes_pack_kernel(const uint8_t* __restrict__ mod, const uint2* __restrict__ ab,
             (uint32_t(br >> 4) << 24) | (uint32_t(ba >> 5) << 28);
   color |= mode != 0 ? 1u : 0u;
 
-  const uint32_t slot = spread_bits(by) | (spread_bits(bx) << 1);
-  out[first + slot] = make_uint2(mod_word, color);
+  if (live) {
+    const long long slot =
+        kDesign == kRowMajor ? first + (spread_bits(by) | (spread_bits(bx) << 1))
+                             : n;
+    out[slot] = make_uint2(mod_word, color);
+  }
 }
 
 inline int grid_for(long long n) { return int((n + kThreads - 1) / kThreads); }
 
-int kernel_info(const void* fn, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  int ctas = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, 0);
-  if (err != cudaSuccess) return int(err);
-  out[0] = attr.numRegs;
-  out[1] = int(attr.sharedSizeBytes);
-  out[2] = ctas;
-  return 0;
+template <int kDesign>
+int launch_modes_pack(const void* mod, const void* ab, int batch, int nby,
+                      int nbx, void* out, void* stream) {
+  const long long total = (long long)batch * nby * nbx;
+  modes_pack_kernel<kDesign><<<grid_for(total), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mod), static_cast<const uint2*>(ab), total,
+      nbx, static_cast<uint2*>(out));
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -460,11 +555,23 @@ int texcomp_pvrtc_upscale_modulate(const void* img, const void* ab, int batch,
 
 int texcomp_pvrtc_modes_pack(const void* mod, const void* ab, int batch,
                              int nby, int nbx, void* out, void* stream) {
-  modes_pack_kernel<<<grid_for((long long)batch * nby * nbx), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mod), static_cast<const uint2*>(ab), batch,
-      nby, nbx, static_cast<uint2*>(out));
-  return int(cudaGetLastError());
+  return launch_modes_pack<kSlotLoad>(mod, ab, batch, nby, nbx, out, stream);
+}
+
+// Mode + pack in design `design` (PackDesign), for chip_smoke.py's probe.
+int texcomp_pvrtc_modes_pack_design(int design, const void* mod,
+                                    const void* ab, int batch, int nby,
+                                    int nbx, void* out, void* stream) {
+  switch (design) {
+    case kSlotShuffle:
+      return launch_modes_pack<kSlotShuffle>(mod, ab, batch, nby, nbx, out, stream);
+    case kSlotLoad:
+      return launch_modes_pack<kSlotLoad>(mod, ab, batch, nby, nbx, out, stream);
+    case kRowMajor:
+      return launch_modes_pack<kRowMajor>(mod, ab, batch, nby, nbx, out, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 // Registers per thread, static shared memory in bytes, and resident CTAs
@@ -474,9 +581,9 @@ int texcomp_pvrtc_info(int kernel, int* out) {
   const void* fns[4] = {reinterpret_cast<const void*>(morph_kernel<false>),
                         reinterpret_cast<const void*>(morph_kernel<true>),
                         reinterpret_cast<const void*>(upscale_modulate_kernel),
-                        reinterpret_cast<const void*>(modes_pack_kernel)};
+                        reinterpret_cast<const void*>(modes_pack_kernel<kSlotLoad>)};
   if (kernel < 0 || kernel > 3) return int(cudaErrorInvalidValue);
-  return kernel_info(fns[kernel], out);
+  return texcomp::kernel_info(fns[kernel], kThreads, out);
 }
 
 }  // extern "C"
