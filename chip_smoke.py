@@ -68,10 +68,11 @@ line is printed:
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
                 equal to tests/golden/expected.json, and the 3 self-pinned
                 PVRTC extension cases (4bpp encode + decode, the 2bpp
-                decode) equal to tests/golden/extensions.json, and the 11
+                decode) equal to tests/golden/extensions.json, and the 14
                 self-pinned quality="high" cases (DXTC in 4 formats at
                 24x36 and 57x33, ETC1 at 28x20, the transcode at 24x16, a
-                DXT5 downsample at 32x48) equal to tests/golden/hq_torch.json.
+                DXT5 downsample at 32x48, PVRTC 2bpp at 32x32 and 64x64,
+                PVRTC 4bpp at 32x32) equal to tests/golden/hq_torch.json.
   5. main path  at 4096x4096, each path with the launch counts set to 0
                 just before it and read just after, every result byte-equal
                 to the plain path on the card:
@@ -95,10 +96,19 @@ line is printed:
                   BGR image; EtcCompressor(quality="high") compress;
                   transcode_dxt1_to_etc1(quality="high") of the DXT1
                   payload; DxtcCompressor("high").downsample_chain of the
-                  RGBA payload (10 levels, level by level).
+                  RGBA payload (10 levels, level by level);
+                  PvrtcCompressor("high") and Pvrtc4bppCompressor("high")
+                  compress of the RGBA image, each also byte-equal to the
+                  same call with device="cpu" (the HQ PVRTC float sums
+                  have one order on every device), with the arm the
+                  best-of took and the PSNR of both arms.
                 Every kernel must be launched by the paths that use it.
-                Then the stage split of one 4096x4096 PVRTC compress(),
-                and the device time of one 1024x1024 HQ DXT1 and ETC1
+                Then both HQ PVRTC encoders once more under
+                torch.cuda.set_sync_debug_mode("error"): no op of theirs
+                waits on the device; and both on a smooth 1024x1024 image,
+                on the card and on the CPU, bytes equal. Then the stage
+                split of one 4096x4096 PVRTC compress(), and the device
+                time of one 1024x1024 HQ DXT1, ETC1 and PVRTC 2bpp
                 compress under torch.profiler.
 
 main() does not run the probes: pvrtc_pack_probe(gpu, library) times the
@@ -143,7 +153,7 @@ from texcomp_torch import (
 )
 from texcomp_torch.api import helper4x4 as h4
 from texcomp_torch.blocks import full_outside_mask, image_to_blocks
-from texcomp_torch.codecs import dxt_hq, etc
+from texcomp_torch.codecs import dxt_hq, etc, pvrtc, pvrtc4, pvrtc_hq
 from texcomp_torch.ops import (
     _build,
     _launch,
@@ -490,7 +500,9 @@ def golden_compressor(case: dict, device, quality: str = "reference"):
         return EtcCompressor(CompressionStrategy(case["strategy"]),
                              quality=quality, device=device)
     if case["codec"] == "pvrtc":
-        return PvrtcCompressor(device=device)
+        return PvrtcCompressor(quality, device=device)
+    if case["codec"] == "pvrtc4":
+        return Pvrtc4bppCompressor(quality, device=device)
     return DxtcCompressor(quality, device=device)
 
 
@@ -576,7 +588,10 @@ HQ_CASES = (
        dict(name="hq_transcode_24x16", kind="transcode", codec="dxtc", fmt=0,
             comps=3, h=24, w=16, seed=11, strategy=2),
        dict(name="hq_down_dxtc_f2_32x48", kind="downsample", codec="dxtc",
-            fmt=2, comps=4, h=32, w=48, seed=5, strategy=2)])
+            fmt=2, comps=4, h=32, w=48, seed=5, strategy=2)]
+    + [dict(name=f"hq_enc_{codec}_{side}", kind="encode", codec=codec, fmt=2,
+            comps=4, h=side, w=side, seed=side * 1000 + side, strategy=2)
+       for codec, side in (("pvrtc", 32), ("pvrtc", 64), ("pvrtc4", 32))])
 
 
 def dxtc_golden_cases(gv) -> list[dict]:
@@ -1847,10 +1862,42 @@ def plain_kernels():
             setattr(module, attr, fn)
 
 
-def main_hq(images: dict, launches: Launches, gpu: str) -> None:
+def _psnr(decoded: torch.Tensor, image: torch.Tensor) -> float:
+    """PSNR in dB of a decoded (H, W, 4) image over all four channels."""
+    d = decoded.to(torch.float64) - image.to(torch.float64)
+    mse = float((d * d).mean())
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def pvrtc_hq_arms(fmt_bits: int, image: np.ndarray, payload: np.ndarray) -> str:
+    """Which arm of the HQ PVRTC best-of ``payload`` is, and the PSNR of
+    each arm against ``image`` (on the card)."""
+    img = torch.from_numpy(image).cuda()
+    side = image.shape[0]
+    if fmt_bits == 2:
+        arms = {"HQ": pvrtc_hq._encode_hq(img),
+                "reference": pvrtc_cuda.pvrtc_encode_image(img)}
+        decode = pvrtc.decode_pvrtc_2bpp
+    else:
+        arms = {"HQ": pvrtc_hq._encode_hq4(img),
+                "reference": pvrtc4.encode_pvrtc_4bpp(img)}
+        decode = pvrtc4.decode_pvrtc_4bpp
+    took = [k for k, v in arms.items()
+            if np.array_equal(v.cpu().numpy().reshape(-1), payload)]
+    if not took:
+        fail(f"PVRTC {fmt_bits}bpp HQ payload is neither arm of its best-of")
+    psnr = {k: _psnr(decode(v, side, side), img) for k, v in arms.items()}
+    return (f"best-of took {' = '.join(took)}; PSNR HQ {psnr['HQ']:.3f} dB, "
+            f"reference {psnr['reference']:.3f} dB (gain "
+            f"{psnr['HQ'] - psnr['reference']:+.3f} dB)")
+
+
+def main_hq(images: dict, launches: Launches, gpu: str) -> dict:
     """quality="high" at 1024^2 on cuda: DXTC compress of RGB, RGBA and BGR,
-    ETC1 compress, the HQ transcode of the DXT1 payload and the DXT5 HQ
-    mip chain, each byte-equal to the same path on the plain twins."""
+    ETC1 compress, the HQ transcode of the DXT1 payload, PVRTC 2bpp and
+    4bpp compress and the DXT5 HQ mip chain, each byte-equal to the same
+    path on the plain twins; the PVRTC payloads also to the same call on
+    the CPU. Returns the PVRTC payloads by bits per pixel."""
     side = HQ_SIZE
 
     def compress(comp, fmt):
@@ -1885,7 +1932,18 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> None:
          ("etc1_hq_search",)),
         ('transcode_dxt1_to_etc1(quality="high")', transcode(dxt1_src),
          ("dxt1_decode", "etc1_hq_search")),
+        ('PvrtcCompressor("high") compress',
+         compress(PvrtcCompressor("high", device="cuda"), Format.RGBA),
+         ("pvrtc_morph", "pvrtc_upscale_modulate", "pvrtc_modes_pack")),
+        ('Pvrtc4bppCompressor("high") compress',
+         compress(Pvrtc4bppCompressor("high", device="cuda"), Format.RGBA),
+         ()),
     ]
+    on_cpu = {'PvrtcCompressor("high") compress':
+              (2, compress(PvrtcCompressor("high", device="cpu"), Format.RGBA)),
+              'Pvrtc4bppCompressor("high") compress':
+              (4, compress(Pvrtc4bppCompressor("high", device="cpu"),
+                           Format.RGBA))}
     payloads = {}
     for what, run, kernels in jobs:
         ci, times = launches.run(what, kernels, lambda: _timed(run, 2))
@@ -1895,10 +1953,22 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> None:
                 or not np.array_equal(ci.get_data(), want.get_data())):
             fail(f"{what} differs from the plain path on the card")
         payloads[what] = ci
+        extra = ""
+        if what in on_cpu:
+            bits, cpu_run = on_cpu[what]
+            t0 = time.perf_counter()
+            cpu_ci = cpu_run()
+            t_cpu = time.perf_counter() - t0
+            if not np.array_equal(ci.get_data(), cpu_ci.get_data()):
+                diff = (ci.get_data().reshape(-1, 8)
+                        != cpu_ci.get_data().reshape(-1, 8)).any(-1).sum()
+                fail(f"{what} on cuda differs from the cpu in {diff} blocks")
+            extra = (f", equal to device=\"cpu\" ({t_cpu * 1e3:.1f} ms); "
+                     + pvrtc_hq_arms(bits, images[Format.RGBA], ci.get_data()))
         print(f"[main] {what} {side}x{side} on {gpu}: equal to plain; wall "
               f"{statistics.median(times) * 1e3:.1f} ms (median of "
               f"{len(times)}, first {times[0] * 1e3:.1f}), plain twins "
-              f"{plain_times[0] * 1e3:.1f} ms", flush=True)
+              f"{plain_times[0] * 1e3:.1f} ms{extra}", flush=True)
 
     src = payloads['DxtcCompressor("high") RGBA compress']
     chain, times = launches.run(
@@ -1917,6 +1987,77 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> None:
     print(f"[main] DxtcCompressor(\"high\") RGBA downsample_chain {side}x{side} "
           f"-> 1x1 on {gpu}: {levels} levels level by level, each equal to "
           f"plain; wall {times[0] * 1e3:.1f} ms", flush=True)
+    return {2: payloads['PvrtcCompressor("high") compress'],
+            4: payloads['Pvrtc4bppCompressor("high") compress']}
+
+
+def photo_image(seed: int, side: int) -> np.ndarray:
+    """A smooth (side, side, 4) image: colour gradients with sine structure
+    and +-12 noise, alpha rising 40 -> 255 down the image (opaque in its
+    last quarter)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side]
+    span = side - 1
+    img = np.stack([xx * 255 // span, yy * 255 // span,
+                    (xx + yy) * 255 // (2 * span),
+                    np.minimum(255, 40 + yy * 287 // span)], axis=-1)
+    img[..., 0] += (20 * np.sin(xx / 3.0)).astype(np.int64)
+    img[..., 1] += (16 * np.cos(yy / 5.0)).astype(np.int64)
+    img[..., :3] += rng.integers(-12, 13, (side, side, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def pvrtc_hq_photo(gpu: str) -> None:
+    """Both HQ PVRTC encoders on a smooth 1024^2 image (photo_image), on
+    the card and on the CPU: bytes equal, and the arm and PSNR of each."""
+    image = photo_image(5, HQ_SIZE)
+    parts = []
+    for bits, encode in ((2, pvrtc_hq.encode_pvrtc_2bpp_hq),
+                         (4, pvrtc_hq.encode_pvrtc_4bpp_hq)):
+        got = encode(torch.from_numpy(image).cuda()).cpu().numpy().reshape(-1)
+        want = encode(torch.from_numpy(image)).numpy().reshape(-1)
+        if not np.array_equal(got, want):
+            fail(f"PVRTC {bits}bpp HQ of the smooth image: cuda differs from "
+                 f"the cpu in {(got != want).reshape(-1, 8).any(-1).sum()} "
+                 "blocks")
+        parts.append(f"{bits}bpp {pvrtc_hq_arms(bits, image, got)}")
+    print(f"[main] PVRTC HQ of a smooth {HQ_SIZE}x{HQ_SIZE} image on {gpu}: "
+          f"2bpp and 4bpp payloads equal to the cpu's; " + "; ".join(parts),
+          flush=True)
+
+
+def pvrtc_hq_no_sync(image: np.ndarray, payloads: dict, gpu: str) -> None:
+    """Both HQ PVRTC encoders on a device tensor under
+    torch.cuda.set_sync_debug_mode("error"): an op that waits on the device
+    (a host copy, ``.item()``, a data-dependent size) raises, and nothing
+    here catches it. After a warm call (which caches the per-device
+    tables), a path that passes could be captured by a CUDA graph."""
+    img = torch.from_numpy(image).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        # The control: a host-to-device copy must raise in this mode.
+        try:
+            torch.from_numpy(image[:1, :1]).to("cuda")
+            caught = False
+        except RuntimeError:
+            caught = True
+        if not caught:
+            fail("set_sync_debug_mode(\"error\") let a host copy through")
+        out = {2: pvrtc_hq.encode_pvrtc_2bpp_hq(img),
+               4: pvrtc_hq.encode_pvrtc_4bpp_hq(img)}
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for bits, payload in out.items():
+        if not np.array_equal(payload.cpu().numpy().reshape(-1),
+                              payloads[bits].get_data()):
+            fail(f"PVRTC {bits}bpp HQ under sync debug mode differs from "
+                 "its compress()")
+    print(f"[main] encode_pvrtc_2bpp_hq and encode_pvrtc_4bpp_hq "
+          f"{image.shape[0]}x{image.shape[1]} on {gpu} under "
+          f'set_sync_debug_mode("error") (which raised on a host-to-device '
+          f"copy): no synchronising op; payloads equal to compress()'s",
+          flush=True)
 
 
 def pvrtc_stage_split(img: np.ndarray, gpu: str, runs: int = 20) -> None:
@@ -2069,21 +2210,24 @@ def pvrtc_pack_probe(gpu: str, library=None, runs: int = 20) -> None:
 
 def hq_device_split(images: dict, gpu: str) -> None:
     """Where one 1024^2 HQ compress spends its time, under torch.profiler:
-    its wall against the device time of the kernels it ran (the two HQ
+    its wall against the device time of the kernels it ran (the port's own
     kernels apart) and of its copies, the number of kernels, and the
     device's idle share of the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     side = HQ_SIZE
-    jobs = (("DXT1", DxtcCompressor("high", device="cuda"), "cluster_topk4"),
-            ("ETC1", EtcCompressor(quality="high", device="cuda"),
-             "hq_search_kernel"))
-    for what, comp, hq_kernel in jobs:
+    jobs = (("DXT1", DxtcCompressor("high", device="cuda"), Format.RGB,
+             ("cluster_topk4",)),
+            ("ETC1", EtcCompressor(quality="high", device="cuda"), Format.RGB,
+             ("hq_search_kernel",)),
+            ("PVRTC 2bpp", PvrtcCompressor("high", device="cuda"), Format.RGBA,
+             ("morph_kernel", "upscale_modulate_kernel", "modes_pack_kernel")))
+    for what, comp, fmt, names in jobs:
         def run():
             ci = CompressedImage()
-            _require(comp.compress(Format.RGB, side, side, 0,
-                                   images[Format.RGB], ci), "compress")
+            _require(comp.compress(fmt, side, side, 0, images[fmt], ci),
+                     "compress")
 
         run()
         torch.cuda.synchronize()
@@ -2099,12 +2243,13 @@ def hq_device_split(images: dict, gpu: str) -> None:
         copies = [e for e, c in zip(on_device, is_copy) if c]
         kernels = [e for e, c in zip(on_device, is_copy) if not c]
         ms = lambda evs: sum(e.time_range.elapsed_us() for e in evs) / 1e3
-        hq = [e for e in kernels if hq_kernel in e.name]
+        hq = [e for e in kernels if any(n in e.name for n in names)]
         busy = ms(kernels) + ms(copies)
         print(f"[main] {what} quality=\"high\" compress {side}x{side} on {gpu} "
               f"under torch.profiler: wall {wall:.1f} ms; {len(kernels)} "
-              f"kernels {ms(kernels):.3f} ms, of them {len(hq)} {hq_kernel} "
-              f"{ms(hq):.3f} ms; copies {ms(copies):.3f} ms; device idle "
+              f"kernels {ms(kernels):.3f} ms, of them {len(hq)} "
+              f"{' / '.join(names)} {ms(hq):.3f} ms; copies "
+              f"{ms(copies):.3f} ms; device idle "
               f"{100 * (1 - busy / wall):.1f}% of the wall" if on_device else
               f"[main] {what} HQ compress: torch.profiler saw no device "
               "events; device time not measured", flush=True)
@@ -2118,11 +2263,13 @@ def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
     main_chains(payloads, launches, gpu)
     main_transcode(payloads, launches, gpu)
     pvrtc_img = main_pvrtc(pv, launches, gpu)
-    main_hq(hq_images, launches, gpu)
+    pvrtc_hq_payloads = main_hq(hq_images, launches, gpu)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)
+    pvrtc_hq_no_sync(hq_images[Format.RGBA], pvrtc_hq_payloads, gpu)
+    pvrtc_hq_photo(gpu)
     pvrtc_stage_split(pvrtc_img, gpu)
     hq_device_split(hq_images, gpu)
     return launches.total

@@ -251,8 +251,8 @@ def test_signatures_name_every_entry_point():
 def test_quality_high_not_ported(rng):
     """quality="high" raised NotImplementedError until the HQ DXTC slice;
     now DxtcCompressor("high") compresses and builds its mip chain as
-    texcomp's does (PVRTC HQ is what stays unported,
-    test_torch_pvrtc_api.py). An unknown quality still raises."""
+    texcomp's does (PVRTC HQ: test_torch_pvrtc_api.py and
+    test_torch_pvrtc_hq.py). An unknown quality still raises."""
     h, w = 16, 32
     buf = _buffer(rng, h, w, 4, 0)
     jc = texcomp.DxtcCompressor("high")

@@ -6,7 +6,7 @@ port on the CPU, with the same case runner that chip_smoke.py uses on the
 card; so do the 3 self-pinned PVRTC extension cases of
 tests/golden/extensions.json (4bpp encode + decode, the 2bpp decode).
 
-The 11 quality="high" cases of chip_smoke.HQ_CASES have no reference
+The 14 quality="high" cases of chip_smoke.HQ_CASES have no reference
 referent: tests/golden/hq_torch.json pins texcomp's CPU digests, which
 texcomp must still give and the port must equal (chip_smoke.py holds the
 card to them). ``python -m tests.test_torch_golden`` rewrites the file
@@ -96,6 +96,10 @@ def texcomp_hq_outputs(case: dict) -> dict:
     img = gv.golden_image(case["seed"], h, w, case["comps"])
     if case["codec"] == "etc":
         comp = texcomp.EtcCompressor(quality="high")
+    elif case["codec"] == "pvrtc":
+        comp = texcomp.PvrtcCompressor(quality="high")
+    elif case["codec"] == "pvrtc4":
+        comp = texcomp.Pvrtc4bppCompressor(quality="high")
     else:
         comp = texcomp.DxtcCompressor("high")
     ci = texcomp.CompressedImage()
@@ -104,6 +108,8 @@ def texcomp_hq_outputs(case: dict) -> dict:
         texcomp.transcode_dxt1_to_etc1(ci, quality="high")
         return {"out": gv.digest(ci.get_data())}
     assert comp.compress(fmt, h, w, 0, img.tobytes(), ci)
+    if case["kind"] == "encode" and case["codec"] == "pvrtc":
+        return {"out": gv.digest(ci.get_data())}  # PVRTC 2bpp has no decode
     if case["kind"] == "encode":
         buf = bytearray()
         assert comp.decompress(ci, buf)
@@ -118,8 +124,10 @@ def _hq_expected() -> dict:
 
 
 def test_eleven_hq_cases():
+    """The HQ cases, named once for the first eleven (DXTC, ETC1); the
+    three PVRTC HQ cases make fourteen."""
     names = [c["name"] for c in HQ_CASES]
-    assert len(names) == len(set(names)) == 11
+    assert len(names) == len(set(names)) == 14
     assert sorted(_hq_expected()) == sorted(names)
 
 

@@ -199,7 +199,7 @@ def test_port_payload_decodes_in_jax(rng, codec):
     assert tbuf == jbuf
 
 
-# --- no silent device fallback, no HQ yet -----------------------------------
+# --- no silent device fallback; quality="high" ------------------------------
 
 
 @pytest.mark.parametrize("codec", CODECS)
@@ -218,10 +218,25 @@ def test_cuda_device_without_cuda_raises(rng, codec):
 
 
 @pytest.mark.parametrize("codec", CODECS)
-def test_quality_high_not_ported(codec):
-    cls = (texcomp_torch.PvrtcCompressor if codec == "pvrtc"
-           else texcomp_torch.Pvrtc4bppCompressor)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        cls(quality="high", device="cpu")
+def test_quality_high_parity(rng, codec):
+    """quality="high" compresses as texcomp's does: payload, metadata and
+    the decode of the payload. An unknown quality still raises."""
+    side = 32
+    buf = _image(rng, side).tobytes()
+    cls = {"pvrtc": (texcomp.PvrtcCompressor, texcomp_torch.PvrtcCompressor),
+           "pvrtc4": (texcomp.Pvrtc4bppCompressor,
+                      texcomp_torch.Pvrtc4bppCompressor)}[codec]
+    jc, tc = cls[0](quality="high"), cls[1]("high", device="cpu")
+    ji, ti = texcomp.CompressedImage(), texcomp_torch.CompressedImage()
+    assert jc.compress(texcomp.Format.RGBA, side, side, 0, buf, ji)
+    assert tc.compress(texcomp_torch.Format.RGBA, side, side, 0, buf, ti)
+    _assert_same(ti, ji)
+    jbuf, tbuf = bytearray(), bytearray()
+    if codec == "pvrtc":
+        assert jc.decompress_extension(ji, jbuf)
+        assert tc.decompress_extension(ti, tbuf)
+    else:
+        assert jc.decompress(ji, jbuf) and tc.decompress(ti, tbuf)
+    assert tbuf == jbuf
     with pytest.raises(ValueError):
-        cls(quality="best", device="cpu")
+        cls[1](quality="best", device="cpu")

@@ -17,8 +17,9 @@ its four strategies (``EtcCompressor``), mip chains of both
 (``PvrtcCompressor``, and ``ops.pvrtc_cuda.pvrtc_encode_batched`` for a
 batch of same-size images) with its decode extension
 (``PvrtcCompressor.decompress_extension``), and the 4bpp extension
-(``Pvrtc4bppCompressor``). DXT1/DXT5, ETC1 and the transcoder also take
-``quality="high"``, texcomp's HQ encoders. Every entry point runs on the
+(``Pvrtc4bppCompressor``). DXT1/DXT5, ETC1, the transcoder and both
+PVRTC compressors also take ``quality="high"``, texcomp's HQ encoders.
+Every entry point runs on the
 card unless the caller passes ``device="cpu"``.
 """
 

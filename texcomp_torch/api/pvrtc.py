@@ -10,8 +10,10 @@ pvrtc_compressor.h:62-67).
 
 The 2BPP encode runs through ``texcomp_torch.ops.pvrtc_cuda`` on the
 compressor's device: the three CUDA kernels on a CUDA device, their plain
-PyTorch twins on the CPU. The decode extension and the 4BPP codec are plain
-PyTorch on either device (texcomp runs them outside any Pallas kernel).
+PyTorch twins on the CPU. ``quality="high"`` runs ``codecs.pvrtc_hq``
+(whose 2BPP reference arm is that same encode). The decode extension and
+the 4BPP codec are plain PyTorch on either device (texcomp runs them
+outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from texcomp_torch.api import helper4x4 as h4
 from texcomp_torch.api.compressor import Compressor
 from texcomp_torch.api.container import CompressedImage, Format, Metadata
-from texcomp_torch.codecs import pvrtc, pvrtc4
+from texcomp_torch.codecs import pvrtc, pvrtc4, pvrtc_hq
 from texcomp_torch.ops import pvrtc_cuda
 
 
@@ -31,11 +33,7 @@ def _is_power_of_two(x: int) -> bool:
 
 
 def _check_quality(quality: str) -> None:
-    if quality == "high":
-        raise NotImplementedError(
-            'quality="high" is not ported yet; see ROADMAP.md Queue 1 '
-            "item 11 (PVRTC HQ)")
-    if quality != "reference":
+    if quality not in ("reference", "high"):
         raise ValueError(f"unknown quality {quality!r}")
 
 
@@ -51,6 +49,7 @@ class _PvrtcBase(Compressor):
 
     def __init__(self, quality: str = "reference", *, device="cuda"):
         _check_quality(quality)
+        self._quality = quality
         self._device = torch.device(device)
 
     def supports_format(self, fmt: Format) -> bool:
@@ -151,8 +150,9 @@ class PvrtcCompressor(_PvrtcBase):
     the C++ reference.
 
     Args:
-      quality: only "reference" is ported; "high" raises
-        NotImplementedError.
+      quality: "reference" (byte-identical to the C++ reference) or
+        "high" (``codecs.pvrtc_hq``: alternating minimization, never worse
+        than the reference by decoded error; texcomp's bytes).
       device: the torch device that encodes and decodes; the card unless
         the caller passes "cpu". Nothing falls back to another device: a
         CUDA device on a machine without one raises at the first
@@ -168,6 +168,8 @@ class PvrtcCompressor(_PvrtcBase):
         return width * height // 4
 
     def _encode(self, image: torch.Tensor) -> torch.Tensor:
+        if self._quality == "high":
+            return pvrtc_hq.encode_pvrtc_2bpp_hq(image)
         return pvrtc_cuda.pvrtc_encode_image(image)
 
     # -- extensions beyond the reference ---------------------------------------
@@ -197,6 +199,8 @@ class Pvrtc4bppCompressor(_PvrtcBase):
         return width * height // 2  # 4 bits/pixel
 
     def _encode(self, image: torch.Tensor) -> torch.Tensor:
+        if self._quality == "high":
+            return pvrtc_hq.encode_pvrtc_4bpp_hq(image)
         return pvrtc4.encode_pvrtc_4bpp(image)
 
     def decompress(self, image, decompressed_buffer) -> bool:

@@ -53,9 +53,22 @@ def zorder_block_permutation(nbx: int, nby: int) -> np.ndarray:
     return native.zorder_perm(nbx, nby)
 
 
-def _perm(nbx: int, nby: int, device) -> torch.Tensor:
+@lru_cache(maxsize=64)
+def _perm(nbx: int, nby: int, device: torch.device) -> torch.Tensor:
+    """:func:`zorder_block_permutation` as an int64 tensor on ``device``,
+    copied there once per grid size: a later encode makes no host-to-device
+    copy, so it never waits on the host."""
     return torch.from_numpy(zorder_block_permutation(nbx, nby)).to(
         device=device, dtype=torch.int64)
+
+
+@lru_cache(maxsize=64)
+def _inverse_perm(nbx: int, nby: int, device: torch.device) -> torch.Tensor:
+    """The inverse of :func:`_perm`, cached on ``device`` as it is."""
+    perm = zorder_block_permutation(nbx, nby)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int32)
+    return torch.from_numpy(inv).to(device=device, dtype=torch.int64)
 
 
 def pack_words(rgba: torch.Tensor) -> torch.Tensor:
@@ -278,8 +291,21 @@ _BITPOS_2BPP = (2 * (_YY * 4 + _XX // 2)).astype(np.int32)
 _FLAGGED_2BPP = ((_BITPOS_2BPP == 0) | (_BITPOS_2BPP == 20)) & _CHECKER
 
 
-def _table(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+_TABLES = {
+    "bitpos_1bpp": _BITPOS_1BPP,
+    "bitpos_2bpp": _BITPOS_2BPP,
+    "checker": _CHECKER,
+    "flagged_2bpp": _FLAGGED_2BPP,
+    "at0": (_BITPOS_2BPP == 0) & _CHECKER,
+    "at20": (_BITPOS_2BPP == 20) & _CHECKER,
+}
+
+
+@lru_cache(maxsize=None)
+def _table(name: str, device: torch.device) -> torch.Tensor:
+    """The per-block table ``_TABLES[name]`` on ``device``, copied there
+    once (as :func:`_perm`)."""
+    return torch.from_numpy(np.ascontiguousarray(_TABLES[name])).to(device)
 
 
 def _word_sum(x: torch.Tensor) -> torch.Tensor:
@@ -317,20 +343,20 @@ def _block_modulation_data(mod, modes):
     m = _blocks_of(mod).to(torch.int32)
 
     # 1BPP: bit per pixel = mod/2 at bitpos y*8+x.
-    word_1bpp = _word_sum((m >> 1) << _table(_BITPOS_1BPP, dev))
+    word_1bpp = _word_sum((m >> 1) << _table("bitpos_1bpp", dev))
 
     # 2BPP checkerboard: 2 bits per stored pixel; sub-mode flags steal a bit
     # at bitpos 0 (average4 vs other) and bitpos 20 (vertical vs horizontal).
     modes_b = modes[..., None, None]
-    at0 = _table((_BITPOS_2BPP == 0) & _CHECKER, dev)
-    at20 = _table((_BITPOS_2BPP == 20) & _CHECKER, dev)
+    at0 = _table("at0", dev)
+    at20 = _table("at20", dev)
     # bitpos 0: average4 -> bit &= 2, else bit |= 1 (:476-481)
     bits = torch.where(at0, torch.where(modes_b == 1, m & 2, m | 1), m)
     # bitpos 20: vertical -> bit |= 1, else bit &= 2 (:482-488)
     bits = torch.where(at20, torch.where(modes_b == 2, bits | 1, bits & 2),
                        bits)
-    bit2 = torch.where(_table(_CHECKER, dev),
-                       bits << _table(_BITPOS_2BPP, dev), 0)
+    bit2 = torch.where(_table("checker", dev),
+                       bits << _table("bitpos_2bpp", dev), 0)
     word_2bpp = _word_sum(bit2)
     return torch.where(modes == 0, word_1bpp, word_2bpp)
 
@@ -403,11 +429,7 @@ def records_to_words(data: torch.Tensor):
 
 def unpermute_zorder(words: torch.Tensor, nbx: int, nby: int) -> torch.Tensor:
     """(N,) words in Z-order slots -> (nby, nbx) in row-major block order."""
-    perm = zorder_block_permutation(nbx, nby)
-    inv = np.empty_like(perm)
-    inv[perm] = np.arange(perm.size, dtype=np.int32)
-    return words[torch.from_numpy(inv).to(words.device, torch.int64)].reshape(
-        nby, nbx)
+    return words[_inverse_perm(nbx, nby, words.device)].reshape(nby, nbx)
 
 
 def _decode_color(word: torch.Tensor, is_b: bool):
@@ -472,19 +494,19 @@ def decode_pvrtc_2bpp(data: torch.Tensor, height: int,
 
     # Extract raw per-pixel bits.
     mw = mod_words[:, :, None, None]
-    mod_1bpp = ((mw >> _table(_BITPOS_1BPP, dev)) & 1) * 3  # bit set -> color1
-    bits2 = (mw >> _table(_BITPOS_2BPP, dev)) & 3
+    mod_1bpp = ((mw >> _table("bitpos_1bpp", dev)) & 1) * 3  # bit set -> color1
+    bits2 = (mw >> _table("bitpos_2bpp", dev)) & 3
     # Sub-mode flags (stored at bitpos 0 and 20).
     submode_other = mod_words & 1  # 1 -> vertical/horizontal
     submode_vert = (mod_words >> 20) & 1  # 1 -> vertical
     # Flag-carrying positions lose their low bit: value is bit&2 -> {0, 2}.
-    bits2 = torch.where(_table(_FLAGGED_2BPP, dev), bits2 & 2, bits2)
+    bits2 = torch.where(_table("flagged_2bpp", dev), bits2 & 2, bits2)
 
     mod_blocks = torch.where(is_2bpp[:, :, None, None], bits2, mod_1bpp)
     mod_img = mod_blocks.transpose(1, 2).reshape(h, w)
 
     # Interpolate modulation for non-stored checkerboard pixels.
-    stored = _table(_CHECKER, dev).repeat(nby, nbx)
+    stored = _table("checker", dev).repeat(nby, nbx)
     avg4, avg_v, avg_h = modulation_neighbor_interps(mod_img)
 
     def per_pixel(x):

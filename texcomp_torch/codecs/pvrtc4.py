@@ -23,9 +23,12 @@ from texcomp_torch.codecs import pvrtc
 
 BLOCK = 4  # 4x4 blocks, 2 bits/pixel modulation + 64-bit record = 4 bpp
 
-# Bit position of pixel (y, x) in the modulation word: 2 * (y * 4 + x).
-_SHIFTS = 2 * torch.arange(BLOCK * BLOCK, dtype=torch.int32).reshape(
-    BLOCK, BLOCK)
+
+def _shifts(device: torch.device) -> torch.Tensor:
+    """Bit position of pixel (y, x) in the modulation word, 2 * (y * 4 + x),
+    made on ``device`` (no host-to-device copy)."""
+    return 2 * torch.arange(BLOCK * BLOCK, dtype=torch.int32,
+                            device=device).reshape(BLOCK, BLOCK)
 
 
 def encode_pvrtc_4bpp(image: torch.Tensor) -> torch.Tensor:
@@ -43,7 +46,7 @@ def encode_pvrtc_4bpp(image: torch.Tensor) -> torch.Tensor:
     mod = pvrtc._modulate(img, a_up, b_up)
 
     blocks = mod.reshape(nb, BLOCK, nb, BLOCK).transpose(1, 2)
-    mod_words = pvrtc._word_sum(blocks << _SHIFTS.to(image.device)).reshape(-1)
+    mod_words = pvrtc._word_sum(blocks << _shifts(image.device)).reshape(-1)
     # Bit 0 of the color word is the mode flag: 0, the standard weights.
     modes0 = torch.zeros((nb, nb), dtype=torch.int32, device=image.device)
     color_words = pvrtc._encode_colors(a, b, modes0).reshape(-1)
@@ -65,7 +68,7 @@ def decode_pvrtc_4bpp(data: torch.Tensor, height: int,
     b_up = pvrtc._interpolate_upscaled(
         pvrtc._decode_color(color_words, is_b=True), h, w, BLOCK, BLOCK)
 
-    shifts = _SHIFTS.to(data.device)
+    shifts = _shifts(data.device)
     mod = (mod_words[:, :, None, None] >> shifts) & 3  # (nb, nb, 4, 4)
     mod = mod.transpose(1, 2).reshape(h, w)[..., None]
 
