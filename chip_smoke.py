@@ -110,13 +110,34 @@ line is printed:
                 split of one 4096x4096 PVRTC compress(), and the device
                 time of one 1024x1024 HQ DXT1, ETC1 and PVRTC 2bpp
                 compress under torch.profiler.
+  6. pipeline   texcomp_torch.dist on BASELINE config 5 (bench.py's
+                _FLEET_DIST x {DXT1 RGB, ETC1 RGB, DXT5 RGBA, PVRTC RGBA}:
+                9,984 assets of 64x64 to 2048x2048, 1.31 Gpix, 4-image
+                pools per size class), each path with the launch counts
+                set to 0 just before it and read just after:
+                  AssetPipeline(batch_size=32).run warm, then timed
+                  (wall, Mpix/s; each encode kernel launched once a
+                  batch, and nothing else), then split by stage (host
+                  stacking, host->device, kernels by CUDA events,
+                  device->host, container packing); every payload and
+                  metadata equal to the same run on the plain twins, and
+                  one asset per (codec, size) to the per-asset compress;
+                  run(mipmaps=True) equal to the plain path;
+                  a fleet of the 64x64-256x256 classes with 10%
+                  quality="high", equal to the plain path.
+                Then a mesh of four cuda:0 entries (encode_group and
+                encode_atlas_sharded equal to one device), two gloo
+                processes on cuda:0 (the pod fleet with mip chains, the
+                union equal to one process, both fleet PSNRs equal to
+                quality_report), and quality_report of five codecs on the
+                card equal to the CPU's.
 
 main() does not run the probes: pvrtc_pack_probe(gpu, library) times the
 three designs of mode + pack, or a parent commit's kernel from its built
 library, against a copy_ of the same bytes.
 
 Before the last line it prints one JSON line with each kernel's launches
-in phase 5, its largest difference from its twin, its time, its twin's
+in phases 5 and 6, its largest difference from its twin, its time, its twin's
 time and its bound, then the card's name and power limit as nvidia-smi
 gives them. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -154,6 +175,11 @@ from texcomp_torch import (
 from texcomp_torch.api import helper4x4 as h4
 from texcomp_torch.blocks import full_outside_mask, image_to_blocks
 from texcomp_torch.codecs import dxt_hq, etc, pvrtc, pvrtc4, pvrtc_hq
+from texcomp_torch.dist._multihost_worker import (launch_two_process_demo,
+                                                  pod_fleet, quality_batch)
+from texcomp_torch.dist.mesh import encode_atlas_sharded, make_mesh
+from texcomp_torch.dist.pipeline import (AssetPipeline, StageTimes,
+                                         TextureAsset, quality_report)
 from texcomp_torch.ops import (
     _build,
     _launch,
@@ -2255,6 +2281,240 @@ def hq_device_split(images: dict, gpu: str) -> None:
               "events; device time not measured", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the asset pipeline.
+# ---------------------------------------------------------------------------
+
+#: bench.py's _FLEET_DIST, (side, assets per codec), and _FLEET_CODECS:
+#: BASELINE config 5, 9,984 assets and 1.31 Gpix.
+PIPELINE_DIST = ((64, 1024), (128, 768), (256, 384), (512, 192), (1024, 96),
+                 (2048, 32))
+PIPELINE_CODECS = (("dxt1", 3), ("etc1", 3), ("dxt5", 4), ("pvrtc", 4))
+#: bench.py's pipeline batch (bench_pipeline_fleet_e2e).
+PIPELINE_BATCH = 32
+#: The kernels one reference-quality batch of a codec launches, once each.
+BATCH_KERNELS = {"dxt1": ("dxt1_encode",), "etc1": ("etc1_encode",),
+                 "dxt5": ("dxt5_encode",),
+                 "pvrtc": ("pvrtc_morph_batched", "pvrtc_upscale_modulate",
+                           "pvrtc_modes_pack")}
+
+
+def pipeline_fleet(dist=None, hq: bool = False, seed: int = 0):
+    """(assets, pixels, batches) of a config-5 fleet as bench.py builds it:
+    per size class a pool of 4 images per codec (the first make_image's
+    bands, the others uniform noise) and ``count`` assets of each codec
+    drawing from it in turn. With ``hq``, the first count // 10 (at least
+    one) of each (codec, size) are quality="high" (bench.py's
+    bench_pipeline_fleet_hq). ``batches``: codec -> reference batches."""
+    rng = np.random.default_rng(seed)
+    dist = PIPELINE_DIST if dist is None else dist
+    assets, pixels = [], 0
+    batches = collections.Counter()
+    for size, count in dist:
+        n_hq = max(1, count // 10) if hq else 0
+        for codec, ch in PIPELINE_CODECS:
+            pool = [make_image(seed + size + ch, size, size, ch)]
+            pool += [rng.integers(0, 256, (size, size, ch), dtype=np.uint8)
+                     for _ in range(3)]
+            for i in range(count):
+                assets.append(TextureAsset(
+                    f"{codec}_{size}_{i}", pool[i % 4], codec,
+                    quality="high" if i < n_hq else "reference"))
+            pixels += count * size * size
+            batches[codec] += -(-(count - n_hq) // PIPELINE_BATCH)
+    return assets, pixels, batches
+
+
+def _fleet_run(pipe: AssetPipeline, assets, mipmaps: bool = False):
+    """pipe.run() and its wall time in s."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.run(assets, mipmaps=mipmaps)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _same_results(got: dict, want: dict, what: str) -> None:
+    """Fail unless both runs hold the same entries, payloads and metadata."""
+    if set(got) != set(want):
+        fail(f"{what}: entries differ ({len(got)} against {len(want)})")
+    bad = [k for k in got
+           if got[k].get_metadata() != want[k].get_metadata()
+           or not np.array_equal(got[k].get_data(), want[k].get_data())]
+    if bad:
+        fail(f"{what}: {len(bad)} of {len(got)} entries differ, e.g. {bad[:5]}")
+
+
+def _plain_run(assets, mipmaps: bool = False) -> dict:
+    with plain_kernels():
+        return _fleet_run(AssetPipeline(batch_size=PIPELINE_BATCH), assets,
+                          mipmaps)[0]
+
+
+def pipeline_api_check(assets, got: dict) -> None:
+    """The first asset of each (codec, size) against the per-asset API's
+    compress on the card."""
+    comps = {"dxt1": DxtcCompressor(device="cuda"),
+             "dxt5": DxtcCompressor(device="cuda"),
+             "etc1": EtcCompressor(device="cuda"),
+             "pvrtc": PvrtcCompressor(device="cuda")}
+    fmts = {"dxt1": Format.RGB, "etc1": Format.RGB, "dxt5": Format.RGBA,
+            "pvrtc": Format.RGBA}
+    seen = set()
+    for a in assets:
+        key = (a.codec, a.image.shape)
+        if key in seen:
+            continue
+        seen.add(key)
+        ci = CompressedImage()
+        h, w = a.image.shape[:2]
+        _require(comps[a.codec].compress(fmts[a.codec], h, w, 0, a.image, ci),
+                 f"{a.name} compress")
+        if (ci.get_metadata() != got[a.name].get_metadata()
+                or not np.array_equal(ci.get_data(), got[a.name].get_data())):
+            fail(f"pipeline {a.name} differs from the per-asset compress")
+    print(f"[pipeline] {len(seen)} assets, one per (codec, size), equal to "
+          "the per-asset compress on the card", flush=True)
+
+
+def pipeline_fleet_runs(launches: Launches, gpu: str) -> None:
+    """The config-5 fleet: warm, timed, by stage, against the plain path,
+    against the API, and with mip chains."""
+    assets, pixels, batches = pipeline_fleet()
+    pipe = AssetPipeline(batch_size=PIPELINE_BATCH)
+    _, warm = _fleet_run(pipe, assets)
+    expected = {k: batches[c] for c, ks in BATCH_KERNELS.items() for k in ks}
+    (got, wall) = launches.run(
+        f"pipeline fleet ({len(assets)} assets)", tuple(expected),
+        lambda: _fleet_run(pipe, assets))
+    counts = dict(_launch.LAUNCHES)
+    if {k: n for k, n in counts.items() if n} != expected:
+        fail(f"fleet launches {counts}, expected one a batch: {expected}")
+    print(f"[pipeline] fleet of {len(assets)} assets, {pixels / 1e9:.3f} Gpix, "
+          f"batches of {PIPELINE_BATCH} on {gpu}: wall {wall:.3f} s "
+          f"({pixels / wall / 1e6:.1f} Mpix/s; warm-up run {warm:.3f} s); "
+          f"one launch of each kernel a batch: {expected}", flush=True)
+
+    pipe.stage_times = StageTimes()
+    _, staged = _fleet_run(pipe, assets)
+    ms = pipe.stage_times.device_ms()
+    host = pipe.stage_times.host_s
+    pipe.stage_times = None
+    print(f"[pipeline] stage split of one fleet run (wall {staged:.3f} s): "
+          f"host stacking {host['stack']:.3f} s, host->device "
+          f"{ms['h2d']:.1f} ms, kernels {ms['kernels']:.1f} ms (CUDA events, "
+          f"launch gaps included), device->host {ms['d2h']:.1f} ms, "
+          f"container packing {host['pack']:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+    _same_results(got, _plain_run(assets), "pipeline fleet")
+    print(f"[pipeline] all {len(got)} payloads and metadata equal to the "
+          f"plain path on the card ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    pipeline_api_check(assets, got)
+    del got
+
+    mips, mip_wall = launches.run(
+        "pipeline fleet, mipmaps=True",
+        ("dxt1_downsample", "dxt5_downsample", "etc1_downsample"),
+        lambda: _fleet_run(pipe, assets, mipmaps=True))
+    _same_results(mips, _plain_run(assets, mipmaps=True),
+                  "pipeline fleet with mip chains")
+    print(f"[pipeline] run(mipmaps=True): {len(mips)} entries in "
+          f"{mip_wall:.3f} s, equal to the plain path", flush=True)
+
+
+def pipeline_mixed_quality(launches: Launches, gpu: str) -> None:
+    """Sides 64-256 of the fleet with 10% quality="high", against the
+    plain path."""
+    assets, pixels, _ = pipeline_fleet(PIPELINE_DIST[:3], hq=True, seed=1)
+    n_hq = sum(a.quality == "high" for a in assets)
+    pipe = AssetPipeline(batch_size=PIPELINE_BATCH)
+    got, wall = launches.run(
+        f"pipeline mixed quality ({n_hq} of {len(assets)} high)",
+        ("dxt_hq_cluster_topk4", "etc1_hq_search", "pvrtc_morph",
+         "pvrtc_morph_batched"),
+        lambda: _fleet_run(pipe, assets))
+    _same_results(got, _plain_run(assets), "pipeline mixed quality")
+    print(f"[pipeline] mixed quality on {gpu}: {len(assets)} assets "
+          f"({n_hq} high), {pixels / 1e6:.1f} Mpix, wall {wall:.3f} s "
+          f"({pixels / wall / 1e6:.1f} Mpix/s), equal to the plain path",
+          flush=True)
+
+
+def pipeline_meshes() -> None:
+    """A mesh of four cuda:0 entries against the one-device mesh."""
+    cuda0 = torch.device("cuda", 0)
+    one = make_mesh(1, devices=[cuda0])
+    four = make_mesh(4, data=4, devices=[cuda0] * 4)
+    rng = np.random.default_rng(5)
+    for codec, ch in PIPELINE_CODECS:
+        images = rng.integers(0, 256, (10, 256, 256, ch), dtype=np.uint8)
+        a = AssetPipeline(one).encode_group(images, codec)
+        b = AssetPipeline(four).encode_group(images, codec)
+        if not np.array_equal(a, b):
+            fail(f"encode_group {codec} on four cuda:0 entries differs")
+    for codec, ch in (("dxt1", 3), ("dxt5", 4), ("etc1", 3)):
+        img = torch.from_numpy(make_image(6, SIZE, SIZE, ch)).cuda()
+        a = encode_atlas_sharded(img, one, codec)
+        b = encode_atlas_sharded(img, four, codec)
+        if not torch.equal(a, b):
+            fail(f"encode_atlas_sharded {codec} on four cuda:0 entries differs")
+    print("[pipeline] mesh of four cuda:0 entries: encode_group (4 codecs, "
+          f"10 x 256x256) and encode_atlas_sharded (dxt1, dxt5, etc1 at "
+          f"{SIZE}x{SIZE}) equal to one device", flush=True)
+
+
+def pipeline_processes() -> None:
+    """Two gloo processes on cuda:0 against one process; quality_report on
+    the card against the CPU."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [f"{tmp}/pod_{p}.npz" for p in range(2)]
+        shards = launch_two_process_demo(outs, str(ROOT), timeout=300.0,
+                                         fleet="pod", mipmaps=True,
+                                         device="cuda")
+    psnrs = [float(s.pop("__psnr_dxt1__")) for s in shards]
+    if set(shards[0]) & set(shards[1]):
+        fail("the two processes' partitions overlap")
+    single = AssetPipeline(batch_size=64).run(pod_fleet(), mipmaps=True)
+    merged = {**shards[0], **shards[1]}
+    if set(merged) != set(single) or any(
+            not np.array_equal(v, single[k].get_data())
+            for k, v in merged.items()):
+        fail("the two processes' union differs from one process")
+    ref = quality_report(AssetPipeline(), quality_batch(), "dxt1")
+    if psnrs != [ref, ref]:
+        fail(f"fleet PSNR {psnrs} against one process's {ref}")
+    print(f"[pipeline] two gloo processes on cuda:0: {len(merged)} entries, "
+          f"union equal to one process, both PSNR {ref:.6f} dB "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    rng = np.random.default_rng(9)
+    for codec in ("dxt1", "dxt5", "etc1", "pvrtc", "pvrtc4"):
+        ch = 3 if codec in ("dxt1", "etc1") else 4
+        images = rng.integers(0, 256, (24, 64, 64, ch), dtype=np.uint8)
+        on_card = quality_report(AssetPipeline(), images, codec)
+        on_cpu = quality_report(AssetPipeline(device="cpu"), images, codec)
+        if on_card != on_cpu:
+            fail(f"quality_report {codec}: {on_card} on the card, {on_cpu} "
+                 "on the cpu")
+    print("[pipeline] quality_report of 5 codecs on the card equal to the "
+          "cpu", flush=True)
+
+
+def phase_pipeline(gpu: str) -> dict:
+    """Phase 6; returns its launch counts, summed."""
+    t0 = time.perf_counter()
+    launches = Launches()
+    pipeline_fleet_runs(launches, gpu)
+    pipeline_mixed_quality(launches, gpu)
+    pipeline_meshes()
+    pipeline_processes()
+    print(f"[pipeline] launches: {launches.total}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches.total
+
+
 def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
     """The main paths at 4096^2, and quality="high" at 1024^2; returns the
     launch counts, summed."""
@@ -2291,6 +2551,8 @@ def main() -> int:
     phase_golden(gv)
     launches = phase_main_path({Format.RGB: rgb_np, Format.RGBA: rgba_np}, pv,
                                hq_images, gpu)
+    for name, n in phase_pipeline(gpu).items():
+        launches[name] += n
 
     report = [{"name": name, "route": "cuda", "source": r["source"],
                "replaces": r["replaces"], "launches": launches[name],

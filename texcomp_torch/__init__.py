@@ -9,6 +9,8 @@ bytes for the same input. It imports ``torch`` and never ``jax``.
   * ``texcomp_torch.ops``    image ops: hand-written CUDA kernels for Hopper
     (``csrc/``, built with nvcc at first use) beside their plain twins
   * ``texcomp_torch.api``    the reference-compatible Compressor API
+  * ``texcomp_torch.dist``   the batched asset pipeline, device meshes and
+    the multi-process fleet split
 
 It covers, in reference quality, DXT1/DXT5 (``DxtcCompressor``), ETC1 in
 its four strategies (``EtcCompressor``), mip chains of both
