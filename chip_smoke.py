@@ -11,8 +11,11 @@ line is printed:
   1. device     CUDA must be present; torch/CUDA versions, card name and
                 power limit.
   2. build      the CUDA kernels of texcomp_torch/csrc, built with nvcc
-                (one nvcc per source file, all at once).
-  3. kernels    each of the fifteen kernels against its plain PyTorch twin
+                (one nvcc per source file, all at once), and the host
+                runtime texcomp_torch/native/texcomp_host.cc, built with
+                g++ (the compiler and the library's hashed name).
+  3. kernels    each of the fifteen kernels and the two strip variants
+                against its plain PyTorch twin
                 on the card at 4096x4096 (1,048,576 4x4 blocks, 524,288
                 PVRTC 8x4 blocks; the two HQ kernels at 1024x1024, the size
                 of bench.py's HQ cells), bytes equal:
@@ -49,6 +52,14 @@ line is printed:
                 the batched morph, upscale + modulate and mode + pack of a
                 fleet of 192 images of 512x512 and of 1024 of 64x64, of
                 the tie images' 128x128 quarters and of 64 8x8 images; the
+                strip variants (upscale + modulate with halo rows, mode +
+                pack of a strip) on the strips of the 8192x8192 atlas over
+                4 (2048 x 8192, timed) and of the 4096x4096 random image
+                over 1, 2, 8 and 1,024 shards (33 of the one-row strips),
+                with the rows their neighbours would send, on a strip
+                whose halo rows come from another image, and on the
+                "modulation ties" and "mode thresholds" inputs cut into 8
+                strips (the strip morph held to the whole image's); the
                 HQ cluster-fit top 4 (its float payload compared bit for
                 bit) of the 1024x1024 test image's blocks, of solid, tied,
                 2-value and split blocks, of random prefix sums, with the
@@ -131,13 +142,26 @@ line is printed:
                 union equal to one process, both fleet PSNRs equal to
                 quality_report), and quality_report of five codecs on the
                 card equal to the CPU's.
+  7. atlas      the PVRTC atlases, with the launch counts set to 0 just
+                before each and read just after: the 8192x8192 2bpp atlas
+                (2,097,152 blocks) over 4 strips on a mesh of four cuda:0
+                entries and on a (data 4, block 2) mesh, each strip
+                launching the morph and both variants once, byte-equal to
+                pvrtc_encode_image on the card; the 4096x4096 4bpp atlas
+                byte-equal to encode_pvrtc_4bpp on the card; each atlas's
+                wall against the single device's (host clock, median of 5)
+                and each halo exchange's CUDA-event time.
+  8. cli        python -m texcomp_torch encode (DXT1), info, decode,
+                mipmap and transcode-dxt1-etc1 of a 1024x1024 image in a
+                temporary directory, each archive entry equal to the API's
+                result on the card.
 
 main() does not run the probes: pvrtc_pack_probe(gpu, library) times the
 three designs of mode + pack, or a parent commit's kernel from its built
 library, against a copy_ of the same bytes.
 
 Before the last line it prints one JSON line with each kernel's launches
-in phases 5 and 6, its largest difference from its twin, its time, its twin's
+in phases 5, 6 and 7, its largest difference from its twin, its time, its twin's
 time and its bound, then the card's name and power limit as nvidia-smi
 gives them. The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,7 +201,11 @@ from texcomp_torch.blocks import full_outside_mask, image_to_blocks
 from texcomp_torch.codecs import dxt_hq, etc, pvrtc, pvrtc4, pvrtc_hq
 from texcomp_torch.dist._multihost_worker import (launch_two_process_demo,
                                                   pod_fleet, quality_batch)
-from texcomp_torch.dist.mesh import encode_atlas_sharded, make_mesh
+from texcomp_torch import native
+from texcomp_torch.dist import mesh as tmesh
+from texcomp_torch.dist.mesh import (encode_atlas_sharded, make_mesh,
+                                     pvrtc4_encode_atlas_sharded,
+                                     pvrtc_encode_atlas_sharded)
 from texcomp_torch.dist.pipeline import (AssetPipeline, StageTimes,
                                          TextureAsset, quality_report)
 from texcomp_torch.ops import (
@@ -189,6 +217,7 @@ from texcomp_torch.ops import (
     pvrtc_cuda,
 )
 from texcomp_torch.ops.mipmap import num_chain_levels
+from texcomp_torch.utils import load_archive
 from texcomp_torch.utils.profiling import cuda_time_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -240,6 +269,14 @@ KERNELS = {
     "pvrtc_modes_pack": ("texcomp/ops/pvrtc_fast.py:453", PVRTC_SRC,  # _mpc_kernel
                          pvrtc_cuda.pvrtc_modes_pack_plain,
                          pvrtc_cuda.pvrtc_modes_pack_cuda),
+    # The atlas's strip variants of the two kernels above (the halo paths
+    # of _make_var_words and _mode_edges feeding the same Pallas kernels).
+    "pvrtc_upscale_modulate_halo": ("texcomp/ops/pvrtc_fast.py:413", PVRTC_SRC,  # _upmod_kernel
+                                    pvrtc_cuda.pvrtc_upscale_modulate_halo_plain,
+                                    pvrtc_cuda.pvrtc_upscale_modulate_halo_cuda),
+    "pvrtc_modes_pack_strip": ("texcomp/ops/pvrtc_fast.py:453", PVRTC_SRC,  # _mpc_kernel
+                               pvrtc_cuda.pvrtc_modes_pack_strip_plain,
+                               pvrtc_cuda.pvrtc_modes_pack_strip_cuda),
     "dxt_hq_cluster_topk4": ("texcomp/ops/dxt_pallas.py:917", DXT_HQ_SRC,  # _cf_topk_kernel
                              dxt_hq_cuda.cluster_topk4_plain,
                              dxt_hq_cuda.cluster_topk4_cuda),
@@ -429,9 +466,9 @@ def kernel_work(name: str, args: tuple, out):
                       + etc.HQ_PROBES * _ETC_HQ_PROBE_OPS)
     elif name in ("pvrtc_morph", "pvrtc_morph_batched"):
         ops = out.shape[0] * _PVRTC_MORPH_OPS
-    elif name == "pvrtc_upscale_modulate":
+    elif name in ("pvrtc_upscale_modulate", "pvrtc_upscale_modulate_halo"):
         ops = out.shape[0] * _PVRTC_UPMOD_OPS
-    elif name == "pvrtc_modes_pack":
+    elif name in ("pvrtc_modes_pack", "pvrtc_modes_pack_strip"):
         ops = out.shape[0] * _PVRTC_PACK_OPS
     elif name == "etc1_encode":
         ops = n_out * _ETC_ENCODE_OPS[args[3]]
@@ -664,6 +701,15 @@ def phase_build() -> None:
     _build.load()
     print(f"[build] {_build.library_path().name} "
           f"{'(already built)' if existed else 'built'} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    existed = native.library_path().exists()
+    native.load()
+    version = subprocess.run([native.compiler(), "--version"],
+                             capture_output=True, text=True).stdout
+    print(f"[build] host runtime {native.library_path().name} "
+          f"{'(already built)' if existed else 'built'} by "
+          f"{native.compiler()} ({version.splitlines()[0]}) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -1153,6 +1199,8 @@ OCCUPANCY = {
     "pvrtc_morph_batched": ("texcomp_pvrtc_info", ((1,), "")),
     "pvrtc_upscale_modulate": ("texcomp_pvrtc_info", ((2,), "")),
     "pvrtc_modes_pack": ("texcomp_pvrtc_info", ((3,), "")),
+    "pvrtc_upscale_modulate_halo": ("texcomp_pvrtc_info", ((4,), "")),
+    "pvrtc_modes_pack_strip": ("texcomp_pvrtc_info", ((5,), "")),
 }
 
 
@@ -1214,7 +1262,9 @@ SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E"
         "pvrtc_morph": "morph_kernelILb0E",
         "pvrtc_morph_batched": "morph_kernelILb1E",
         "pvrtc_upscale_modulate": "upscale_modulate_kernel",
-        "pvrtc_modes_pack": "modes_pack_kernelILi1E"}
+        "pvrtc_modes_pack": "modes_pack_kernelILi1E",
+        "pvrtc_upscale_modulate_halo": "upscale_modulate_halo_kernel",
+        "pvrtc_modes_pack_strip": "modes_pack_strip_kernel"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1279,10 +1329,10 @@ def sass_opcodes(kernel: str, library=None) -> str:
 
 
 def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
-                 rgb_hq: torch.Tensor) -> dict:
+                 rgb_hq: torch.Tensor, atlas: torch.Tensor) -> dict:
     """kernel name -> [(label, args)]; the first case of each is timed.
     ``pv`` holds the PVRTC inputs (:func:`pvrtc_images`), ``rgb_hq`` the
-    1024^2 image of the HQ kernels."""
+    1024^2 image of the HQ kernels, ``atlas`` the 8192^2 PVRTC atlas."""
     g = torch.Generator().manual_seed(7)
     rand8 = torch.randint(0, 256, (PIXELS // 16, 8), generator=g,
                           dtype=torch.uint8).cuda()
@@ -1364,6 +1414,7 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             for label, data in (("encoded", etc_payload), ("random", rand8))
             for s in strategies],
         **pvrtc_kernel_cases(pv),
+        **pvrtc_strip_cases(atlas, pv),
         **hq_kernel_cases(rgb_hq),
     }
 
@@ -1476,6 +1527,114 @@ def pvrtc_threshold_cases() -> list:
     return cases
 
 
+#: The PVRTC atlas: one 8192^2 RGBA texture (256 MiB, 2,097,152 blocks),
+#: the size at which texcomp sends the morph to Pallas at all
+#: (pvrtc_fast.py:664-669), on ATLAS_DATA "data" devices; and the 4bpp
+#: atlas at 4096^2.
+ATLAS_SIZE = 8192
+ATLAS_DATA = 4
+ATLAS4_SIZE = 4096
+#: The strip variants, launched only by the atlas (phase 7).
+ATLAS_KERNELS = ("pvrtc_upscale_modulate_halo", "pvrtc_modes_pack_strip")
+
+
+def atlas_image(pv: dict) -> torch.Tensor:
+    """The 8192^2 RGBA atlas on the card: the "tiles" test image and the
+    random image of :func:`pvrtc_images` in a 2x2 grid (flipped below), its
+    first two block rows all zero (so the fallback pixel (0, 0) of every
+    strip's all-zero axes is the whole image's) and rows correlated across
+    the first strip boundary, as texcomp's atlas tests make them."""
+    tiles, rand = pv["tiles"], pv["random"]
+    img = torch.cat([torch.cat([tiles, rand], dim=1),
+                     torch.cat([rand.flip(0), tiles.flip(1)], dim=1)])
+    img = img.contiguous()
+    img[:8] = 0
+    edge = ATLAS_SIZE // ATLAS_DATA
+    img[edge - 4:edge + 4] = img[4:12]
+    return img
+
+
+def _strip_inputs(image: torch.Tensor, shards: int, k: int, ab, mod):
+    """The inputs strip ``k`` of ``image`` over ``shards`` has in an atlas:
+    its pixels, its (A, B) words and the rows its neighbours send (the
+    previous strip's last low-res row, the next one's first, and the next
+    one's first modulation row group), sliced from the whole image's
+    morph ``ab`` (nby, nbx, 2) and modulation ``mod`` (nby, nbx, 32)."""
+    nby, nbx = ab.shape[:2]
+    rows = nby // shards
+    y0, y1 = k * rows, (k + 1) * rows
+    strip = image[4 * y0:4 * y1]
+    return (strip, ab[y0:y1].reshape(-1, 2), ab[y0 - 1].contiguous(),
+            ab[y1 % nby].contiguous(), mod[y0:y1].reshape(-1, 32),
+            mod[y1 % nby, :, :8].contiguous(), rows, nbx)
+
+
+def pvrtc_strip_cases(atlas: torch.Tensor, pv: dict) -> dict:
+    """The strip variants' cases, as an atlas's strips call them: the
+    8192^2 atlas's first strip of 4 (2048 x 8192, the atlas's strip size;
+    timed) and its other three; the 4096^2 random image over 1, 2, 8 and
+    1,024 shards (every 32nd strip and the last of 1,024: one block row a
+    strip, both halos foreign); a strip whose halo rows come from another
+    image (the "tiles" image), so a kernel that ignored them would differ;
+    the "modulation ties" input and the "mode thresholds" blocks (256^2)
+    cut into 8 strips. The strip morph is held to its twin and to the whole
+    image's morph on the way."""
+    sources = {"atlas": atlas, "random": pv["random"], "tiles": pv["tiles"]}
+    whole = {}
+    for label, img in sources.items():
+        nby, nbx = img.shape[0] // 4, img.shape[1] // 8
+        ab = pvrtc_cuda.pvrtc_morph_cuda(img, img[0, 0])
+        mod = pvrtc_cuda.pvrtc_upscale_modulate_cuda(img[None], ab)
+        whole[label] = (ab.reshape(nby, nbx, 2), mod.reshape(nby, nbx, 32))
+    picks = [("atlas", ATLAS_DATA, k) for k in range(ATLAS_DATA)]
+    picks += [("random", 1, 0), ("random", 2, 0), ("random", 2, 1)]
+    picks += [("random", 8, k) for k in range(8)]
+    picks += [("random", 1024, k) for k in range(0, 1024, 32)] + [
+        ("random", 1024, 1023)]
+    up, pack = [], []
+    for label, shards, k in picks:
+        strip, ab, top, bot, mod, halo_v, rows, nbx = _strip_inputs(
+            sources[label], shards, k, *whole[label])
+        if k < 2 or shards == 1024 and k % 256 == 0:
+            morph = pvrtc_cuda.pvrtc_morph_strip_cuda(strip,
+                                                      sources[label][0, 0])
+            plain = pvrtc_cuda.pvrtc_morph_strip_plain(strip,
+                                                       sources[label][0, 0])
+            if not (torch.equal(morph, ab) and torch.equal(plain, ab)):
+                fail(f"the strip morph of {label} strip {k} of {shards} "
+                     "differs from the whole image's")
+        name = f"{label} strip {k} of {shards}"
+        up.append((name, (strip, ab, top, bot)))
+        pack.append((name, (mod, ab, halo_v, rows, nbx)))
+    # Halo rows of another image: the tiles image's rows around strip 3 of
+    # 8 in place of the random image's.
+    strip, ab, _, _, mod, _, rows, nbx = _strip_inputs(
+        sources["random"], 8, 3, *whole["random"])
+    _, _, top, bot, _, halo_v, _, _ = _strip_inputs(
+        sources["tiles"], 8, 3, *whole["tiles"])
+    up.append(("random strip 3 of 8, tiles' halo rows", (strip, ab, top, bot)))
+    pack.append(("random strip 3 of 8, tiles' modulation row",
+                 (mod, ab, halo_v, rows, nbx)))
+    # The modulation ties and the mode thresholds, in 8 strips.
+    ties_img, ties_ab = pvrtc_modulation_ties()
+    ties_img = torch.from_numpy(ties_img[0]).cuda()
+    ties_ab = torch.from_numpy(ties_ab).cuda()
+    nby, nbx = ties_img.shape[0] // 4, ties_img.shape[1] // 8
+    ties_mod = pvrtc_cuda.pvrtc_upscale_modulate_cuda(ties_img[None], ties_ab)
+    thr_mod, _ = pvrtc_mode_thresholds(256)
+    thr_mod = torch.from_numpy(thr_mod).cuda().reshape(nby, nbx, 32)
+    for k in range(8):
+        strip, ab, top, bot, _, _, rows, _ = _strip_inputs(
+            ties_img, 8, k, ties_ab.reshape(nby, nbx, 2),
+            ties_mod.reshape(nby, nbx, 32))
+        up.append((f"modulation ties strip {k} of 8", (strip, ab, top, bot)))
+        _, _, _, _, mod, halo_v, _, _ = _strip_inputs(
+            ties_img, 8, k, ties_ab.reshape(nby, nbx, 2), thr_mod)
+        pack.append((f"mode thresholds strip {k} of 8",
+                     (mod, ab, halo_v, rows, nbx)))
+    return {"pvrtc_upscale_modulate_halo": up, "pvrtc_modes_pack_strip": pack}
+
+
 def _unfused_level(name: str, args: tuple):
     """The level of ``name``'s fused downsample as decode kernel, torch
     average and encode kernel."""
@@ -1511,10 +1670,10 @@ def _difference(got, want) -> float:
 
 
 def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
-                  rgb_hq: torch.Tensor) -> dict:
+                  rgb_hq: torch.Tensor, atlas: torch.Tensor) -> dict:
     """Kernel vs plain on the card; returns per-kernel results."""
     measure_rates()
-    cases = kernel_cases(rgb, rgba, pv, rgb_hq)
+    cases = kernel_cases(rgb, rgba, pv, rgb_hq, atlas)
     results = {}
     for name, (replaces, source, plain, kernel) in KERNELS.items():
         worst = 0
@@ -2515,6 +2674,174 @@ def phase_pipeline(gpu: str) -> dict:
     return launches.total
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the PVRTC atlases.
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def exchange_times():
+    """Times each halo exchange of the atlases (``dist.mesh._exchange``)
+    between two CUDA events on the current stream: yields a list that
+    collects (start, end) event pairs in call order."""
+    pairs, exchange = [], tmesh._exchange
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = exchange(*args)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    tmesh._exchange = timed
+    try:
+        yield pairs
+    finally:
+        tmesh._exchange = exchange
+
+
+def _atlas_walls(name: str, atlas_fn, single_fn, exchanges: tuple,
+                 runs: int = 5) -> str:
+    """The atlas's and the single-device encode's walls (host clock, median
+    of ``runs``) and each exchange's CUDA-event median."""
+    with exchange_times() as pairs:
+        _, atlas_t = _timed(atlas_fn, runs)
+    torch.cuda.synchronize()
+    ms = [statistics.median(a.elapsed_time(b) for a, b in
+                            pairs[i::len(exchanges)])
+          for i in range(len(exchanges))]
+    _, single_t = _timed(single_fn, runs)
+    return (f"{name}: atlas {statistics.median(atlas_t) * 1e3:.3f} ms, "
+            f"single device {statistics.median(single_t) * 1e3:.3f} ms (host "
+            f"clock, median of {runs}); exchanges (CUDA events, median): "
+            + ", ".join(f"{e} {t:.4f} ms" for e, t in zip(exchanges, ms)))
+
+
+def phase_atlas(atlas: torch.Tensor, pv: dict, gpu: str) -> dict:
+    """The 8192^2 PVRTC 2bpp atlas on a mesh of four cuda:0 entries and on
+    a (data 4, block 2) mesh, byte-equal to pvrtc_encode_image on the card;
+    the 4096^2 4bpp atlas, byte-equal to encode_pvrtc_4bpp on the card;
+    their walls against the single device's and the halo exchanges' times.
+    Returns the launch counts, summed."""
+    t0 = time.perf_counter()
+    launches = Launches()
+    cuda0 = torch.device("cuda", 0)
+    meshes = {"four cuda:0 entries": make_mesh(ATLAS_DATA, devices=[cuda0] * 4),
+              "a (data 4, block 2) mesh": make_mesh(
+                  2 * ATLAS_DATA, data=ATLAS_DATA, block=2,
+                  devices=[cuda0] * 8)}
+    single = pvrtc_cuda.pvrtc_encode_image(atlas)
+    path = ("pvrtc_morph",) + ATLAS_KERNELS
+    for label, mesh in meshes.items():
+        got = launches.run(
+            f"PVRTC 2bpp atlas {ATLAS_SIZE}^2 on {label}", path,
+            lambda: pvrtc_encode_atlas_sharded(atlas, mesh))
+        counts = {k: n for k, n in _launch.LAUNCHES.items() if n}
+        if counts != {k: ATLAS_DATA for k in path}:
+            fail(f"the atlas launched {counts}, expected each kernel once a "
+                 f"strip ({ATLAS_DATA})")
+        if not torch.equal(got, single):
+            fail(f"the 2bpp atlas on {label} differs from pvrtc_encode_image")
+    print(f"[atlas] 2bpp {ATLAS_SIZE}^2 ({atlas.shape[0] * atlas.shape[1] // 32:,}"
+          f" blocks) on both meshes equal to pvrtc_encode_image on {gpu}",
+          flush=True)
+    print("[atlas] " + _atlas_walls(
+        f"2bpp {ATLAS_SIZE}^2 over {ATLAS_DATA} strips",
+        lambda: pvrtc_encode_atlas_sharded(atlas, meshes["four cuda:0 entries"]),
+        lambda: pvrtc_cuda.pvrtc_encode_image(atlas),
+        ("A+B last rows", "A+B first rows", "first modulation rows")),
+        flush=True)
+
+    atlas4 = pv["tiles"].clone()
+    atlas4[:4] = 0
+    got = launches.run(
+        f"PVRTC 4bpp atlas {ATLAS4_SIZE}^2 on four cuda:0 entries", (),
+        lambda: pvrtc4_encode_atlas_sharded(atlas4,
+                                            meshes["four cuda:0 entries"]))
+    if not torch.equal(got, pvrtc4.encode_pvrtc_4bpp(atlas4)):
+        fail("the 4bpp atlas differs from encode_pvrtc_4bpp")
+    print(f"[atlas] 4bpp {ATLAS4_SIZE}^2 equal to encode_pvrtc_4bpp on {gpu}",
+          flush=True)
+    print("[atlas] " + _atlas_walls(
+        f"4bpp {ATLAS4_SIZE}^2 over {ATLAS_DATA} strips",
+        lambda: pvrtc4_encode_atlas_sharded(atlas4,
+                                            meshes["four cuda:0 entries"]),
+        lambda: pvrtc4.encode_pvrtc_4bpp(atlas4),
+        ("A+B last rows", "A+B first rows")), flush=True)
+    print(f"[atlas] launches: {launches.total}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches.total
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the CLI.
+# ---------------------------------------------------------------------------
+
+CLI_SIZE = 1024
+
+
+def _cli(*argv: str) -> str:
+    """``python -m texcomp_torch`` with ``argv`` from the repository root;
+    its standard output, or a failure with its error output."""
+    proc = subprocess.run([sys.executable, "-m", "texcomp_torch", *argv],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        fail(f"python -m texcomp_torch {' '.join(argv)} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout.strip()
+
+
+def _same_entry(got: CompressedImage, want: CompressedImage, what: str):
+    if (got.get_metadata() != want.get_metadata()
+            or not np.array_equal(got.get_data(), want.get_data())):
+        fail(f"CLI {what}: the archive's entry differs from the API's")
+
+
+def phase_cli(gpu: str) -> None:
+    """A round trip through ``python -m texcomp_torch`` on the card in a
+    temporary directory: encode (DXT1), info, decode, mipmap and
+    transcode-dxt1-etc1 of a 1024^2 image, each archive entry equal to the
+    API's result on the card."""
+    t0 = time.perf_counter()
+    img = make_image(12, CLI_SIZE, CLI_SIZE, 3)
+    comp = DxtcCompressor(device="cuda")
+    want = CompressedImage()
+    _require(comp.compress(Format.RGB, CLI_SIZE, CLI_SIZE, 0, img, want),
+             "compress")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, archive = f"{tmp}/img.npy", f"{tmp}/a.txc"
+        np.save(src, img)
+        lines = [_cli("encode", "--codec", "dxt1", "--input", src,
+                      "--archive", archive)]
+        _same_entry(load_archive(archive)["img"], want, "encode")
+        lines.append(_cli("info", "--archive", archive))
+        lines.append(_cli("decode", "--archive", archive, "--name", "img",
+                          "--output", f"{tmp}/dec.npy"))
+        buf = bytearray()
+        _require(comp.decompress(want, buf), "decompress")
+        if not np.array_equal(np.load(f"{tmp}/dec.npy").reshape(-1),
+                              np.frombuffer(bytes(buf), np.uint8)):
+            fail("CLI decode differs from the API's decompress")
+        lines.append(_cli("mipmap", "--archive", archive, "--name", "img"))
+        chain = comp.downsample_chain(want)
+        entries = load_archive(archive)
+        for i, mip in enumerate(chain, start=1):
+            _same_entry(entries[f"img_mip{i}"], mip, f"mipmap level {i}")
+        lines.append(_cli("transcode-dxt1-etc1", "--archive", archive,
+                          "--name", "img"))
+        transcode_dxt1_to_etc1(want, device="cuda")
+        want.get_metadata().compressor_name = "etc"  # as the CLI renames it
+        _same_entry(load_archive(archive)["img"], want, "transcode")
+    said = " | ".join(line.splitlines()[0] for line in lines)
+    print(f"[cli] python -m texcomp_torch encode, info, decode, mipmap "
+          f"({len(chain)} levels) and transcode-dxt1-etc1 of a "
+          f"{CLI_SIZE}^2 image on {gpu}: every entry equal to the API's "
+          f"({time.perf_counter() - t0:.1f} s): {said}", flush=True)
+
+
 def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
     """The main paths at 4096^2, and quality="high" at 1024^2; returns the
     launch counts, summed."""
@@ -2524,7 +2851,8 @@ def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
     main_transcode(payloads, launches, gpu)
     pvrtc_img = main_pvrtc(pv, launches, gpu)
     pvrtc_hq_payloads = main_hq(hq_images, launches, gpu)
-    missing = [k for k, n in launches.total.items() if n == 0]
+    missing = [k for k, n in launches.total.items()
+               if n == 0 and k not in ATLAS_KERNELS]
     if missing:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)
@@ -2546,13 +2874,18 @@ def main() -> int:
     hq_images = {Format.RGB: make_image(3, HQ_SIZE, HQ_SIZE, 3),
                  Format.RGBA: make_image(4, HQ_SIZE, HQ_SIZE, 4)}
     hq_images[Format.BGR] = np.ascontiguousarray(hq_images[Format.RGB][..., ::-1])
+    atlas = atlas_image(pv)
     kernels = phase_kernels(torch.from_numpy(rgb_np).cuda(), rgba, pv,
-                            torch.from_numpy(hq_images[Format.RGB]).cuda())
+                            torch.from_numpy(hq_images[Format.RGB]).cuda(),
+                            atlas)
     phase_golden(gv)
     launches = phase_main_path({Format.RGB: rgb_np, Format.RGBA: rgba_np}, pv,
                                hq_images, gpu)
     for name, n in phase_pipeline(gpu).items():
         launches[name] += n
+    for name, n in phase_atlas(atlas, pv, gpu).items():
+        launches[name] += n
+    phase_cli(gpu)
 
     report = [{"name": name, "route": "cuda", "source": r["source"],
                "replaces": r["replaces"], "launches": launches[name],

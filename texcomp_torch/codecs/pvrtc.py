@@ -212,16 +212,28 @@ def _upscale_axis(low: torch.Tensor, size: int, axis: int, block: int):
 
 
 def _interpolate_upscaled(low: torch.Tensor, h: int, w: int,
-                          block_h: int = BLOCK_H, block_w: int = BLOCK_W):
+                          block_h: int = BLOCK_H, block_w: int = BLOCK_W,
+                          halo=None):
     """Bilinear wrap-around upscale of low-res images to (h, w)
     (GetInterpolatedColor2BPP, pvrtc_compressor.cc:208-237).
 
     low: (..., nby, nbx, C) int32. Returns (..., h, w, C) int32. The
     two-pass integer sum equals the reference's 4-corner weighted sum, so
-    the one final division is bit-exact."""
-    tmp = _upscale_axis(low, w, axis=-2, block=block_w)
-    full = _upscale_axis(tmp, h, axis=-3, block=block_h)
-    return full // (block_w * block_h)
+    the one final division is bit-exact.
+
+    halo: None, or (top, bottom), each (..., nbx, C): the low-res rows
+    above and below ``low`` when it is a strip of a taller image (the
+    previous strip's last row, the next strip's first), which replace the
+    y-wrap. The strip is upscaled with both rows on, whose own wrap then
+    reaches none of its pixels, and cut back out."""
+    if halo is None:
+        tmp = _upscale_axis(low, w, axis=-2, block=block_w)
+        full = _upscale_axis(tmp, h, axis=-3, block=block_h)
+        return full // (block_w * block_h)
+    top, bottom = halo
+    tall = torch.cat([top.unsqueeze(-3), low, bottom.unsqueeze(-3)], dim=-3)
+    up = _interpolate_upscaled(tall, h + 2 * block_h, w, block_h, block_w)
+    return up[..., block_h:block_h + h, :, :]
 
 
 def _apply_modulation(c0, c1, mod: int):
@@ -259,17 +271,25 @@ def _per_block_sum(x: torch.Tensor) -> torch.Tensor:
                      BLOCK_W).sum(dim=(-3, -1), dtype=torch.int32)
 
 
-def _block_modulation_modes(mod: torch.Tensor):
+def _block_modulation_modes(mod: torch.Tensor, halo_v=None):
     """Per-block modulation mode (CalculateBlockModulationMode,
     pvrtc_compressor.cc:395-447). mod: (..., H, W) int32. Returns
     (..., nby, nbx) int32 with 0=1BPP, 1=Average4, 2=Vertical,
     3=Horizontal.
 
+    halo_v: None, or (..., W), the pixel row below the last one when
+    ``mod`` is a strip of a taller image (the next strip's first row),
+    which replaces the vertical wrap.
+
     Note the reference accumulates the vertical-neighbor deltas into
     ``horizontal_count`` and vice versa (:417-429); replicated as-is.
     """
     intermediate = _per_block_sum(((mod == 1) | (mod == 2)).to(torch.int32))
-    dv = (mod - mod.roll(-1, dims=-2)).abs()  # vertical neighbor
+    if halo_v is None:
+        below = mod.roll(-1, dims=-2)
+    else:
+        below = torch.cat([mod[..., 1:, :], halo_v.unsqueeze(-2)], dim=-2)
+    dv = (mod - below).abs()  # vertical neighbor
     dh = (mod - mod.roll(-1, dims=-1)).abs()  # horizontal neighbor
     horizontal_count = _per_block_sum(dv)  # crossed, per the reference
     vertical_count = _per_block_sum(dh)

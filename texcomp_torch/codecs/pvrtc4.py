@@ -31,25 +31,51 @@ def _shifts(device: torch.device) -> torch.Tensor:
                             device=device).reshape(BLOCK, BLOCK)
 
 
+def morph_4bpp(image: torch.Tensor, origin: torch.Tensor | None = None):
+    """(H, W, 4) uint8 -> the reduced low-res colors (A, B), each
+    (H / 4, W / 4, 4) int32. origin: the fallback pixel of an all-zero
+    axis, (4,) uint8; None takes ``image``'s own pixel (0, 0), a strip of a
+    taller image passes the whole image's."""
+    img = image.to(torch.int32)
+    if origin is not None:
+        origin = origin.to(torch.int32)
+    lo, hi = pvrtc._morph_extremes(img, BLOCK, BLOCK, origin=origin)
+    return (pvrtc._apply_color_channel_reduction(lo, is_b=False),
+            pvrtc._apply_color_channel_reduction(hi, is_b=True))
+
+
+def encode_strip_words(image: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       halo=None):
+    """(H, W, 4) uint8 + its :func:`morph_4bpp` colors -> (modulation
+    words, color words), each (H / 4 * W / 4,) int32, row-major.
+
+    halo: None (the image wraps), or ((a_top, b_top), (a_bot, b_bot)),
+    each (W / 4, 4) int32: the low-res rows above and below ``image`` when
+    it is a strip of a taller one, which replace the upscale's y-wrap."""
+    h, w = image.shape[0], image.shape[1]
+    a_halo = b_halo = None
+    if halo is not None:
+        (a_top, b_top), (a_bot, b_bot) = halo
+        a_halo, b_halo = (a_top, a_bot), (b_top, b_bot)
+    a_up = pvrtc._interpolate_upscaled(a, h, w, BLOCK, BLOCK, halo=a_halo)
+    b_up = pvrtc._interpolate_upscaled(b, h, w, BLOCK, BLOCK, halo=b_halo)
+    mod = pvrtc._modulate(image.to(torch.int32), a_up, b_up)
+
+    blocks = mod.reshape(h // BLOCK, BLOCK, w // BLOCK, BLOCK).transpose(1, 2)
+    mod_words = pvrtc._word_sum(blocks << _shifts(image.device)).reshape(-1)
+    # Bit 0 of the color word is the mode flag: 0, the standard weights.
+    modes0 = torch.zeros(a.shape[:2], dtype=torch.int32, device=image.device)
+    color_words = pvrtc._encode_colors(a, b, modes0).reshape(-1)
+    return mod_words, color_words
+
+
 def encode_pvrtc_4bpp(image: torch.Tensor) -> torch.Tensor:
     """(H, W, 4) uint8 (square power-of-two, >= 4) -> (NB, 8) uint8 Z-order
     4bpp records: the 32-bit modulation word (2 bits/pixel, pixel (y, x)
     at bit 2*(y*4+x)) then the 32-bit color word, both little-endian."""
-    h, w = image.shape[0], image.shape[1]
-    nb = h // BLOCK
-    img = image.to(torch.int32)
-    lo, hi = pvrtc._morph_extremes(img, BLOCK, BLOCK)
-    a = pvrtc._apply_color_channel_reduction(lo, is_b=False)
-    b = pvrtc._apply_color_channel_reduction(hi, is_b=True)
-    a_up = pvrtc._interpolate_upscaled(a, h, w, BLOCK, BLOCK)
-    b_up = pvrtc._interpolate_upscaled(b, h, w, BLOCK, BLOCK)
-    mod = pvrtc._modulate(img, a_up, b_up)
-
-    blocks = mod.reshape(nb, BLOCK, nb, BLOCK).transpose(1, 2)
-    mod_words = pvrtc._word_sum(blocks << _shifts(image.device)).reshape(-1)
-    # Bit 0 of the color word is the mode flag: 0, the standard weights.
-    modes0 = torch.zeros((nb, nb), dtype=torch.int32, device=image.device)
-    color_words = pvrtc._encode_colors(a, b, modes0).reshape(-1)
+    nb = image.shape[0] // BLOCK
+    a, b = morph_4bpp(image)
+    mod_words, color_words = encode_strip_words(image, a, b)
     perm = pvrtc._perm(nb, nb, image.device)
     return pvrtc._pack_records(mod_words[perm], color_words[perm])
 

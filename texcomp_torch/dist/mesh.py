@@ -10,6 +10,13 @@ them, the single-controller analogue:
     its data row. Blocks are independent in every 4x4 codec, so this is a
     pure split.
 
+One PVRTC atlas splits its block rows over the "data" devices too, but a
+strip needs one block row of each neighbour: the halo exchanges of
+texcomp's ``ppermute`` pairs become device-to-device copies of one packed
+row between neighbouring "data" devices, cyclic, made by the one process
+that drives the mesh (``pvrtc_encode_atlas_sharded``,
+``pvrtc4_encode_atlas_sharded``).
+
 A device may appear more than once: a mesh of four ``cuda:0`` entries
 runs four parts on one card, as the tests run eight parts on the CPU.
 """
@@ -22,8 +29,10 @@ import numpy as np
 import torch
 
 from texcomp_torch.blocks import image_to_blocks, scatter_blocks
+from texcomp_torch.codecs import pvrtc, pvrtc4
 from texcomp_torch.ops import (dxt1_decode_image_op, dxt1_encode_image_op,
                                dxt5_encode_image_op, etc1_encode_image_op)
+from texcomp_torch.ops import pvrtc_cuda
 
 
 def _device_array(devices: Sequence) -> np.ndarray:
@@ -179,6 +188,103 @@ def encode_atlas_sharded(image: torch.Tensor, mesh: Mesh, codec: str = "dxt1",
 def dxt1_encode_atlas_sharded(image: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """DXT1 wrapper around :func:`encode_atlas_sharded`."""
     return encode_atlas_sharded(image, mesh, "dxt1")
+
+
+def _atlas_strips(image: torch.Tensor, mesh: Mesh, min_side: int,
+                  block_rows: int, what: str):
+    """Check an atlas as texcomp does and cut it into one strip of block
+    rows a "data" device, each on its device: [(device, strip)]."""
+    ndata = mesh.shape["data"]
+    h, w = int(image.shape[0]), int(image.shape[1])
+    if h != w or h < min_side or h & (h - 1) or image.shape[2] != 4:
+        raise ValueError(f"{what}, got {tuple(image.shape)}")
+    nb = h // block_rows
+    if nb % ndata != 0:
+        raise ValueError(
+            f"atlas block rows ({nb}) must split evenly over "
+            f"{ndata} 'data' shards")
+    return [(d, strip.to(d)) for d, strip in
+            zip(mesh.data_devices, image.tensor_split(ndata))]
+
+
+def _exchange(rows: list, devices: list, step: int) -> list:
+    """Halo exchange: device i receives ``rows[(i - step) % n]``, copied to
+    it (step 1: from the previous "data" device, texcomp's ``fwd``; step -1:
+    from the next, ``bwd``)."""
+    n = len(rows)
+    return [rows[(i - step) % n].to(d) for i, d in enumerate(devices)]
+
+
+def pvrtc_encode_atlas_sharded(image: torch.Tensor,
+                               mesh: Mesh) -> torch.Tensor:
+    """Encode ONE PVRTC 2bpp texture with its block rows split over the
+    "data" devices. (S, S, 4) uint8, S a power of two >= 8 whose S / 4
+    block rows split evenly over the "data" devices -> (NB, 8) uint8
+    Z-order records on the mesh's first device, byte-equal to
+    ``ops.pvrtc_cuda.pvrtc_encode_image``.
+
+    Each strip runs the three stages on its device: the morph (with the
+    whole image's pixel (0, 0) as the fallback), upscale + modulate with
+    the low-res rows above and below from its neighbours, mode + pack with
+    the next strip's first modulation row group, row-major. Between them,
+    three exchanges of one row each, as texcomp's three ``ppermute``s: the
+    packed (A, B) last rows forward, the first rows backward, then the
+    first modulation row groups backward. The row-major records are
+    gathered on the first device and permuted to Z-order once. The "block"
+    axis of the mesh is replicated for this op."""
+    strips = _atlas_strips(
+        image, mesh, pvrtc.BLOCK_W, pvrtc.BLOCK_H,
+        "PVRTC atlas must be square power-of-two RGBA with side >= 8 "
+        "(one 8x4 block)")
+    devices = [d for d, _ in strips]
+    nbx = image.shape[1] // pvrtc.BLOCK_W
+    origin = image[0, 0]
+    ab = [pvrtc_cuda.pvrtc_morph_strip(s, origin.to(d)) for d, s in strips]
+    tops = _exchange([a[-nbx:] for a in ab], devices, 1)
+    bots = _exchange([a[:nbx] for a in ab], devices, -1)
+    mod = [pvrtc_cuda.pvrtc_upscale_modulate_halo(s, a, t, b)
+           for (_, s), a, t, b in zip(strips, ab, tops, bots)]
+    halo_v = _exchange([m[:nbx, :8].contiguous() for m in mod], devices, -1)
+    home = devices[0]
+    words = [pvrtc_cuda.pvrtc_modes_pack_strip(
+        m, a, v, a.shape[0] // nbx, nbx).to(home)
+        for m, a, v in zip(mod, ab, halo_v)]
+    nby = image.shape[0] // pvrtc.BLOCK_H
+    return torch.cat(words)[pvrtc._perm(nbx, nby, home)]
+
+
+def pvrtc4_encode_atlas_sharded(image: torch.Tensor,
+                                mesh: Mesh) -> torch.Tensor:
+    """Encode ONE PVRTC 4bpp texture (the extension codec) with its block
+    rows split over the "data" devices: (S, S, 4) uint8, S a power of two
+    >= 4 whose S / 4 block rows split evenly -> (NB, 8) uint8 Z-order
+    records on the mesh's first device, byte-equal to
+    ``codecs.pvrtc4.encode_pvrtc_4bpp``.
+
+    As :func:`pvrtc_encode_atlas_sharded` without the modulation row (4bpp
+    has no mode decision): two exchanges carry the packed (A, B) last and
+    first low-res rows for the upscale's y-wrap. Plain PyTorch on each
+    strip's device, as texcomp has no kernel for it."""
+    strips = _atlas_strips(
+        image, mesh, pvrtc4.BLOCK, pvrtc4.BLOCK,
+        "PVRTC 4bpp atlas must be square power-of-two RGBA with side >= 4")
+    devices = [d for d, _ in strips]
+    origin = image[0, 0]
+    ab = [pvrtc4.morph_4bpp(s, origin.to(d)) for d, s in strips]
+    packed = [torch.stack([pvrtc.pack_words(a), pvrtc.pack_words(b)])
+              for a, b in ab]  # (2, nby, nbx): A and B words
+    tops = _exchange([p[:, -1] for p in packed], devices, 1)
+    bots = _exchange([p[:, 0] for p in packed], devices, -1)
+    home = devices[0]
+    words = []
+    for (_, s), (a, b), top, bot in zip(strips, ab, tops, bots):
+        t, u = pvrtc.unpack_words(top), pvrtc.unpack_words(bot)
+        mod_words, color_words = pvrtc4.encode_strip_words(
+            s, a, b, ((t[0], t[1]), (u[0], u[1])))
+        words.append(torch.stack([mod_words, color_words]).to(home))
+    nb = image.shape[0] // pvrtc4.BLOCK
+    both = torch.cat(words, dim=1)[:, pvrtc._perm(nb, nb, home)]
+    return pvrtc._pack_records(both[0], both[1])
 
 
 def training_step_multichip(n_devices: int, *,

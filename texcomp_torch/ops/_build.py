@@ -57,6 +57,8 @@ SIGNATURES = {
     "texcomp_pvrtc_morph_batched": [_P, _I, _I, _I, _P, _P],
     "texcomp_pvrtc_upscale_modulate": [_P, _P, _I, _I, _I, _P, _P],
     "texcomp_pvrtc_modes_pack": [_P, _P, _I, _I, _I, _P, _P],
+    "texcomp_pvrtc_upscale_modulate_halo": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "texcomp_pvrtc_modes_pack_strip": [_P, _P, _P, _I, _I, _P, _P],
     "texcomp_pvrtc_modes_pack_design": [_I, _P, _P, _I, _I, _I, _P, _P],
     "texcomp_pvrtc_info": [_I, _P],
 }

@@ -1,14 +1,17 @@
-"""Timing on the card with CUDA events.
+"""Timing and tracing on the card.
 
 ``cuda_time_ms`` warms an operation up, then times each of several
 repeats between two CUDA events on the current stream and returns the
 median. Before each repeat it overwrites a buffer larger than the H100's
 50 MB L2 cache, so every repeat starts from device memory, as a caller
-that has just uploaded or produced other data would.
+that has just uploaded or produced other data would. ``throughput`` turns
+that time into Mpix/s. ``device_trace`` records a torch.profiler trace of
+a block of work into a log directory.
 """
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 from typing import Callable
 
@@ -34,3 +37,33 @@ def cuda_time_ms(fn: Callable[[], object], *, device="cuda",
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def throughput(op: Callable, arg, *, pixels: int, device="cuda",
+               warmup: int = 2, repeats: int = 10) -> float:
+    """Mpix/s of ``op(arg)`` on ``device``: ``pixels`` over the
+    :func:`cuda_time_ms` median."""
+    ms = cuda_time_ms(lambda: op(arg), device=device, warmup=warmup,
+                      repeats=repeats)
+    return pixels / (ms * 1e-3) / 1e6
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str, *, device="cuda"):
+    """Record a torch.profiler trace of the block's work into ``logdir``
+    (a Chrome trace, ``*.pt.trace.json``, which TensorBoard's profiler
+    plugin and Perfetto read); the card's kernels too unless ``device`` is
+    the CPU. Yields ``logdir``:
+
+        with device_trace("traces/encode"):
+            encode(...)
+    """
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    handler = torch.profiler.tensorboard_trace_handler(str(logdir))
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=handler):
+        yield logdir
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
