@@ -2556,14 +2556,11 @@ def pipeline_fleet_runs(launches: Launches, gpu: str) -> None:
 
     pipe.stage_times = StageTimes()
     _, staged = _fleet_run(pipe, assets)
-    ms = pipe.stage_times.device_ms()
     host = pipe.stage_times.host_s
     pipe.stage_times = None
-    print(f"[pipeline] stage split of one fleet run (wall {staged:.3f} s): "
-          f"host stacking {host['stack']:.3f} s, host->device "
-          f"{ms['h2d']:.1f} ms, kernels {ms['kernels']:.1f} ms (CUDA events, "
-          f"launch gaps included), device->host {ms['d2h']:.1f} ms, "
-          f"container packing {host['pack']:.3f} s", flush=True)
+    print(f"[pipeline] host stages of one fleet run (wall {staged:.3f} s): "
+          f"host stacking {host['stack']:.3f} s, container packing "
+          f"{host['pack']:.3f} s", flush=True)
 
     t0 = time.perf_counter()
     _same_results(got, _plain_run(assets), "pipeline fleet")

@@ -32,6 +32,7 @@ from texcomp_torch.api.container import (
 )
 from texcomp_torch.blocks import num_blocks
 from texcomp_torch.ops.mipmap import mipmap_chain, num_chain_levels
+from texcomp_torch.utils.profiling import span
 
 EncodeImageFn = Callable[[torch.Tensor, int, int], torch.Tensor]
 DecodeImageFn = Callable[[torch.Tensor, int, int], torch.Tensor]
@@ -222,22 +223,27 @@ def compress(
     over a larger block grid, where overhanging blocks replicate edge
     pixels and blocks wholly outside are has_one_pixel.
     """
-    final_height = max(height, padded_height)
-    final_width = max(width, padded_width)
-    if not setup_compressed_image(
-        image, compressor_name, block_size, fmt, final_height, final_width,
-        padding_bytes_per_row,
-    ):
-        return False
+    with span("texcomp.api.compress"):
+        final_height = max(height, padded_height)
+        final_width = max(width, padded_width)
+        if not setup_compressed_image(
+            image, compressor_name, block_size, fmt, final_height,
+            final_width, padding_bytes_per_row,
+        ):
+            return False
 
-    img = buffer_to_image_array(
-        buffer, height, width, num_format_components(fmt),
-        padding_bytes_per_row,
-    )
-    encoded = encode_image_fn(_to_device(img, device), final_height,
-                              final_width)
-    image.get_mutable_data()[:] = encoded.cpu().numpy().reshape(-1)
-    return True
+        with span("texcomp.api.upload"):
+            img = _to_device(buffer_to_image_array(
+                buffer, height, width, num_format_components(fmt),
+                padding_bytes_per_row,
+            ), device)
+        encoded = encode_image_fn(img, final_height, final_width)
+        # The one place the host waits for the card: its backlog, then the
+        # copy back.
+        with span("texcomp.api.download"):
+            encoded = encoded.cpu()
+        image.get_mutable_data()[:] = encoded.numpy().reshape(-1)
+        return True
 
 
 def decompress(

@@ -33,6 +33,7 @@ import torch
 from texcomp_torch.core import bits
 from texcomp_torch.core import colors as cc
 from texcomp_torch.core.constants import ETC1_CODEBOOK, ETC1_HEURISTIC_THRESHOLDS
+from texcomp_torch.utils.profiling import span
 
 # Strategy codes (etc_compressor.h:57-66).
 SPLIT_HORIZONTALLY = 0
@@ -659,6 +660,15 @@ def hq_search(rgb: torch.Tensor, cands: torch.Tensor, flip: bool):
     return state
 
 
+def _hq_flip(chunk: torch.Tensor, flip: bool, search):
+    """One flip of the HQ encode: its candidates, then ``search``; the
+    candidates are freed on return, before the next flip's are made."""
+    with span("texcomp.etc1.hq.candidates"):
+        cands = hq_candidate_words(chunk, flip)
+    with span("texcomp.etc1.hq.search"):
+        return search(chunk, cands, flip)
+
+
 def encode_etc1_hq_blocks(rgb: torch.Tensor, search=hq_search) -> torch.Tensor:
     """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks, never worse
     than the reference's SMALLER_ERROR (its truncated bases are the first
@@ -670,8 +680,8 @@ def encode_etc1_hq_blocks(rgb: torch.Tensor, search=hq_search) -> torch.Tensor:
         return torch.empty((0, 8), dtype=torch.uint8, device=rgb.device)
     out = []
     for chunk in rgb.split(ENCODE_CHUNK):
-        hi, lo, err = search(chunk, hq_candidate_words(chunk, False), False)
-        hi_t, lo_t, err_t = search(chunk, hq_candidate_words(chunk, True), True)
+        hi, lo, err = _hq_flip(chunk, False, search)
+        hi_t, lo_t, err_t = _hq_flip(chunk, True, search)
         take_t = err_t < err  # left/right wins ties
         out.append(words_to_bytes(torch.where(take_t, hi_t, hi),
                                   torch.where(take_t, lo_t, lo)))

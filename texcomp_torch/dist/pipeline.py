@@ -214,14 +214,11 @@ def _tail_step_batched(payloads: torch.Tensor, *, codec: str, strategy: int,
 
 
 class StageTimes:
-    """Where the time of the batches of a run went: host seconds stacking
-    images into staging memory and packing containers, and the device
-    time of the host-to-device copies, the kernels (launch gaps included)
-    and the device-to-host copies, by CUDA events on the card."""
+    """Where the host time of the batches of a run went: seconds stacking
+    images into staging memory and packing containers."""
 
     def __init__(self):
         self.host_s = {"stack": 0.0, "pack": 0.0}
-        self._intervals: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
 
     @contextlib.contextmanager
     def host(self, stage: str):
@@ -231,34 +228,13 @@ class StageTimes:
         finally:
             self.host_s[stage] += time.perf_counter() - t0
 
-    @contextlib.contextmanager
-    def device(self, stage: str, dev: torch.device):
-        if dev.type != "cuda":
-            yield
-            return
-        stream = torch.cuda.current_stream(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        yield
-        end.record(stream)
-        self._intervals.append((stage, start, end))
-
-    def device_ms(self) -> dict[str, float]:
-        """Milliseconds by device stage, summed; waits for the events."""
-        ms = {"h2d": 0.0, "kernels": 0.0, "d2h": 0.0}
-        for stage, start, end in self._intervals:
-            end.synchronize()
-            ms[stage] += start.elapsed_time(end)
-        return ms
-
 
 class AssetPipeline:
     """Mesh-sharded batch encoder for mixed texture assets.
 
     ``mesh=None`` runs on a one-device mesh on ``device`` (the card unless
     the caller passes "cpu"). Set ``stage_times`` to a :class:`StageTimes`
-    to have the batches of later runs timed by stage."""
+    to have the host stages of later runs' batches timed."""
 
     def __init__(self, mesh: Mesh | None = None, batch_size: int = 64,
                  max_inflight: int = 4, *, device="cuda"):
@@ -279,10 +255,6 @@ class AssetPipeline:
         return (self.stage_times.host(stage) if self.stage_times
                 else contextlib.nullcontext())
 
-    def _device(self, stage: str, dev: torch.device):
-        return (self.stage_times.device(stage, dev) if self.stage_times
-                else contextlib.nullcontext())
-
     def _stage(self, arrays: Sequence[np.ndarray]):
         """Pad the batch to a multiple of the "data" devices (repeating its
         first array) and stack each device's part into one host tensor,
@@ -301,11 +273,7 @@ class AssetPipeline:
         return staged
 
     def _upload(self, staged) -> list[torch.Tensor]:
-        out = []
-        for dev, host in staged:
-            with self._device("h2d", dev):
-                out.append(host.to(dev, non_blocking=True))
-        return out
+        return [host.to(dev, non_blocking=True) for dev, host in staged]
 
     def _fetch(self, out: torch.Tensor):
         """Start the copy of a device result into host memory; returns the
@@ -315,8 +283,7 @@ class AssetPipeline:
         if dev.type != "cuda":
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        with self._device("d2h", dev):
-            host.copy_(out, non_blocking=True)
+        host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(dev))
         return host, done
@@ -342,11 +309,8 @@ class AssetPipeline:
         if fmt not in _VALID_FORMATS[codec]:
             raise ValueError(f"{codec} cannot encode {fmt!r}")
         swap = needs_red_and_blue_swapped(fmt)
-        outs = []
-        for x in self._upload(self._stage(images)):
-            with self._device("kernels", x.device):
-                outs.append(_batch_encode(x, codec, strategy, quality, swap))
-        return outs
+        return [_batch_encode(x, codec, strategy, quality, swap)
+                for x in self._upload(self._stage(images))]
 
     def encode_group(self, images, codec: str, strategy: int = 2,
                      quality: str = "reference",

@@ -33,6 +33,7 @@ from texcomp_torch.ops._launch import downsample_grid as _downsample_grid
 from texcomp_torch.ops._launch import encode_grid as _encode_grid
 from texcomp_torch.ops._launch import launch as _launch
 from texcomp_torch.ops._launch import pick as _pick
+from texcomp_torch.utils.profiling import span
 
 _STRATEGIES = (etc.SPLIT_HORIZONTALLY, etc.SPLIT_VERTICALLY,
                etc.SMALLER_ERROR, etc.HEURISTIC)
@@ -171,10 +172,12 @@ def etc1_hq_encode_padded_image(image: torch.Tensor, grid_height: int,
                                 grid_width: int) -> torch.Tensor:
     """The HQ compress route: the (h, w, 3|4) image, edge-padded to the
     block grid, HQ-encoded. Returns (N, 8) uint8."""
-    h, w = image.shape[:2]
-    blocks = extract_blocks(image, height=h, width=w, grid_height=grid_height,
-                            grid_width=grid_width)[:, :, :3]
-    return etc1_hq_encode_blocks(blocks)
+    with span("texcomp.etc1.hq.encode"):
+        h, w = image.shape[:2]
+        blocks = extract_blocks(image, height=h, width=w,
+                                grid_height=grid_height,
+                                grid_width=grid_width)[:, :, :3]
+        return etc1_hq_encode_blocks(blocks)
 
 
 def etc1_encode_padded_image(image: torch.Tensor, grid_height: int,

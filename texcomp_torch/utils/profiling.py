@@ -6,7 +6,11 @@ median. Before each repeat it overwrites a buffer larger than the H100's
 50 MB L2 cache, so every repeat starts from device memory, as a caller
 that has just uploaded or produced other data would. ``throughput`` turns
 that time into Mpix/s. ``device_trace`` records a torch.profiler trace of
-a block of work into a log directory.
+a block of work into a log directory. ``span`` names a step of the port
+on that trace's timeline.
+
+This module imports nothing of the package, so that every layer, the
+codecs included, can import :func:`span`.
 """
 
 from __future__ import annotations
@@ -16,8 +20,28 @@ import statistics
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 _L2_FLUSH_BYTES = 256 << 20
+
+#: What :func:`span` returns while no profiler records: one shared context
+#: that does nothing.
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks a step of the port as a host event ``name`` on
+    a recording torch.profiler's timeline (the clock of the card's kernels
+    and copies), so that each idle gap of the card can be put down to the
+    step above it. While no profiler records it costs one check and
+    returns :data:`NO_SPAN`:
+
+        with span("texcomp.api.upload"):
+            ...
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def cuda_time_ms(fn: Callable[[], object], *, device="cuda",
