@@ -65,15 +65,21 @@ line is printed:
                 2-value and split blocks, of random prefix sums, with the
                 table cut to 4 and to 13 rows, and of 65,541 blocks; the
                 ETC1 HQ search of both flips of the same blocks, with 37
-                and with 1 candidate, and of 65,541 blocks. First the
+                and with 1 candidate, and of 65,541 blocks; the same
+                search fitting its own candidates (etc1_hq_fit_search,
+                cands None) on the image's, the special, the fit's tie
+                blocks (etc_hq_tie_blocks) and the 65,541 blocks, both
+                flips, held to its twin and to the search kernel given
+                hq_candidate_words. First the
                 rates of csrc/etc.cu's micro-kernels (the packed kernels'
                 operation bound) and the SASS of the search's inner loop;
                 then each kernel's CUDA-event median time against its
                 twin's, and its bound; for the two HQ kernels, the DXT and
                 ETC1 encodes, the three fused levels and the four PVRTC
                 kernels also their registers, shared memory and resident
-                CTAs per SM, and for the DXT encodes, fused levels and
-                PVRTC kernels their SASS instruction count.
+                CTAs per SM, and for the DXT encodes, fused levels, PVRTC
+                kernels and both HQ search variants their SASS instruction
+                count.
   4. golden     the 32 reference-mode golden cases of
                 tests/golden_vectors.py (21 DXTC, 7 ETC1, the DXT1->ETC1
                 transcode, 3 PVRTC 2bpp) through the port on cuda, digests
@@ -283,6 +289,12 @@ KERNELS = {
     "etc1_hq_search": ("texcomp/ops/etc_pallas.py:672", ETC_SRC,  # _etc1_hq_kernel
                        etc_cuda.etc1_hq_search_plain,
                        etc_cuda.etc1_hq_search_cuda),
+    # The same kernel with the candidates fitted inside it
+    # (hq_search_kernel<flip, true>; texcomp fits them in XLA,
+    # texcomp/codecs/etc.py _hq_base_candidates), called with cands None.
+    "etc1_hq_fit_search": ("texcomp/ops/etc_pallas.py:672", ETC_SRC,  # _etc1_hq_kernel
+                           etc_cuda.etc1_hq_search_plain,
+                           etc_cuda.etc1_hq_search_cuda),
 }
 
 # ---------------------------------------------------------------------------
@@ -374,6 +386,17 @@ _CF_PARTITION_OPS, _CF_BLOCK_OPS = 60, 100
 # refit 2 x 174 (8 modifiers looked up and subtracted, 3 rounded means,
 # quantized and packed), a probe 15.
 _ETC_HQ_REFIT_OPS, _ETC_HQ_PROBE_OPS = 348, 15
+# The HQ candidate fit inside the search (hq_fit), per block of 8 lanes,
+# each lane: both subblocks' sums, means, sorted luminances and prefix sums
+# 2 x 190; per subblock and cut the closed-form error and the top-2 update
+# 10, and in the re-solve the penalty of 3 channels, the error and the
+# update 34; per seed of the alternating fit 2 rounds of 16 pixels x (4
+# modifiers x 3 channels x 5 for the clamped difference and its square,
+# and 12 for the first least and the residual sums), the last bases' 16 x
+# (60 + 3) and the 15 adds; the merges, words and stores some 300.
+_ETC_HQ_CANDIDATES = 40  # codecs/etc._hq_base_candidates, a flip
+_ETC_HQ_FIT_OPS = 8 * (2 * 190 + 2 * 165 * (10 + 34)
+                       + 3 * (2 * 16 * 72 + 16 * 63 + 15) + 300)
 
 # The packed kernels (csrc/etc.cu: the ETC1 encode, its fused level and the
 # HQ search) do not issue the scalar operations counted above: per (pixel,
@@ -424,6 +447,12 @@ def _pvrtc_scalar_ops(name: str, out: torch.Tensor):
     return None
 
 
+def _hq_candidates(args: tuple) -> int:
+    """Candidates a block of an HQ search call scores: those given, or
+    with none the 40 that the kernel fits."""
+    return _ETC_HQ_CANDIDATES if args[1] is None else args[1].shape[0]
+
+
 def packed_pairs(name: str, args: tuple, out):
     """(pixel, colour) pairs of a packed kernel's call (None for the other
     kernels): what its blocks' searches need."""
@@ -431,8 +460,8 @@ def packed_pairs(name: str, args: tuple, out):
         return out.shape[0] * _ETC_ENCODE_PAIRS[args[3]]
     if name == "etc1_downsample":
         return out.shape[0] * _ETC_ENCODE_PAIRS[args[3]]
-    if name == "etc1_hq_search":
-        steps = args[1].shape[0] + etc.HQ_PROBES
+    if name in ("etc1_hq_search", "etc1_hq_fit_search"):
+        steps = _hq_candidates(args) + etc.HQ_PROBES
         return args[0].shape[0] * (steps * _ETC_FLIP_PAIRS
                                    + etc.HQ_REFITS * _ETC_HQ_REFIT_PAIRS
                                    + (etc.HQ_REFITS + 1) * _ETC_INDEX_PAIRS)
@@ -459,11 +488,13 @@ def kernel_work(name: str, args: tuple, out):
     }
     if name == "dxt_hq_cluster_topk4":
         ops = n_in * (args[1].shape[0] * _CF_PARTITION_OPS + _CF_BLOCK_OPS)
-    elif name == "etc1_hq_search":
-        steps = args[1].shape[0] + etc.HQ_REFITS + etc.HQ_PROBES
+    elif name in ("etc1_hq_search", "etc1_hq_fit_search"):
+        steps = _hq_candidates(args) + etc.HQ_REFITS + etc.HQ_PROBES
         ops = n_in * (steps * _ETC_FLIP_SEARCH
                       + etc.HQ_REFITS * _ETC_HQ_REFIT_OPS
                       + etc.HQ_PROBES * _ETC_HQ_PROBE_OPS)
+        if args[1] is None:
+            ops += n_in * _ETC_HQ_FIT_OPS
     elif name in ("pvrtc_morph", "pvrtc_morph_batched"):
         ops = out.shape[0] * _PVRTC_MORPH_OPS
     elif name in ("pvrtc_upscale_modulate", "pvrtc_upscale_modulate_halo"):
@@ -510,6 +541,11 @@ def kernel_bound(name: str, args: tuple, out):
         return (*bound(nbytes, ops), note)
     decode = out.shape[0] * _ETC_DOWN_DECODE_OPS if name == "etc1_downsample" else 0
     ms, by = bound(nbytes, decode, pairs)
+    if name == "etc1_hq_fit_search":
+        # The fit's float and integer operations issue through the same
+        # schedulers as the search's __dp4a-pipe instructions: the times add.
+        ms += args[0].shape[0] * _ETC_HQ_FIT_OPS / CUDA_CORE_OPS_PER_S * 1e3
+        by = "operations"
     scalar_ms, scalar_by = bound(nbytes, ops)
     return ms, by, (f"{nbytes / 2**20:.1f} MiB, {pairs / 1e9:.3f} G (pixel, "
                     f"colour) pairs; the scalar-count bound {scalar_ms:.4f} ms "
@@ -902,6 +938,53 @@ def dxt_encode_cases(rgb: torch.Tensor, rgba: torch.Tensor) -> list:
     return out
 
 
+def _enum_errors(px: np.ndarray, members: np.ndarray) -> np.ndarray:
+    """(N, 165 * 8) float32: the HQ ETC1 exhaustive fit's closed-form error
+    of each (cut, codeword) for the subblock ``members`` of (N, 16, 3)
+    blocks, as ``codecs.etc._cluster_fit_enum_bases`` computes it."""
+    parts, _, const, coef13, coef2 = etc._enum_tables()
+    sub = px[:, members].astype(np.float32)
+    t = (sub - sub.sum(axis=1, keepdims=True) / np.float32(8)).sum(axis=2)
+    cum = np.concatenate([np.zeros((len(px), 1), np.float32),
+                          np.cumsum(np.sort(t, axis=1), axis=1,
+                                    dtype=np.float32)], axis=1)
+    tm = ((cum[:, parts[:, 0]] + cum[:, parts[:, 2]])[:, :, None] * coef13
+          + cum[:, parts[:, 1]][:, :, None] * coef2)
+    return const[None] - np.float32(2) * tm.reshape(len(px), -1)
+
+
+def etc_hq_tie_blocks(m: int = 512, seed: int = 23) -> np.ndarray:
+    """(6m, 16, 3) int32 blocks on which the HQ ETC1 candidate fit breaks
+    ties: m solid (every codeword's all-one-modifier cuts tie at 0), m of
+    two colours, m within +-1 and m within +-2 of one colour (least errors
+    shared by codewords and cuts, in both fits), m mirror-symmetric (the
+    flips tie), and m within +-5 of one colour whose least exhaustive-fit
+    error some subblock shares between two codewords."""
+    rng = np.random.default_rng(seed)
+
+    def near(r, k):
+        return rng.integers(0, 256, (k, 1, 3)) + rng.integers(-r, r + 1,
+                                                              (k, 16, 3))
+
+    solid = np.repeat(rng.integers(0, 256, (m, 1, 3)), 16, axis=1)
+    two = np.where(rng.integers(0, 2, (m, 16, 1)) == 1,
+                   rng.integers(0, 256, (m, 1, 3)),
+                   rng.integers(0, 256, (m, 1, 3)))
+    sym = rng.integers(0, 256, (m, 4, 4, 3))
+    upper = np.triu(np.ones((4, 4), bool))[None, :, :, None]
+    sym = np.where(upper, sym, sym.transpose(0, 2, 1, 3)).reshape(m, 16, 3)
+    pool = np.clip(near(5, 16 * m), 0, 255)
+    tied = np.zeros(len(pool), bool)
+    x, y = np.arange(16) % 4, np.arange(16) // 4
+    for members in (x < 2, x >= 2, y < 2, y >= 2):
+        e = _enum_errors(pool, np.where(members)[0])
+        at = (e == e.min(axis=1, keepdims=True)).reshape(len(pool), 165, 8)
+        tied |= at.any(axis=1).sum(axis=1) > 1
+    out = np.concatenate([solid, two, near(1, m), near(2, m), sym,
+                          pool[tied][:m]])
+    return np.clip(out, 0, 255).astype(np.int32)
+
+
 def tie_image() -> torch.Tensor:
     """A 512x512 RGB image on the card made of :func:`special_blocks`'
     16,384 blocks in block order: solid, mirror-symmetric, two-colour and
@@ -1146,7 +1229,9 @@ def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
     cases that test how the kernels split the work: the cluster-fit table
     cut to its first 4 and 13 rows (empty and short slices of the 8 warps),
     65,541 blocks (a ragged last CTA) for both kernels, and 37 candidates
-    (a ragged last chunk of 8) and 1 candidate for the search."""
+    (a ragged last chunk of 8) and 1 candidate for the search. The fused
+    fit's cases (no candidates) take the image's, the special and
+    :func:`etc_hq_tie_blocks`' blocks and the 65,541, each flip."""
     cuts, qtab = dxt_hq._cf_device_tables(torch.device("cuda"))
     sets = {"image": image_to_blocks(rgb_hq), "special": special_blocks()}
     g = torch.Generator(device="cuda").manual_seed(19)
@@ -1181,7 +1266,15 @@ def hq_kernel_cases(rgb_hq: torch.Tensor) -> dict:
         torch.cat([words["image", False],
                    words["special", False][:, :, :5]], dim=2).contiguous(),
         False)))
-    return {"dxt_hq_cluster_topk4": topk4, "etc1_hq_search": search}
+    ties = etc_cuda.pack_pixels(torch.from_numpy(etc_hq_tie_blocks()).cuda())
+    fit = [(f"{label} flip {int(flip)}", (px, None, flip))
+           for label, px in (("image", pixels["image"]),
+                             ("special", pixels["special"]), ("ties", ties),
+                             (f"{n} blocks", torch.cat([pixels["image"],
+                                                        pixels["special"][:5]])))
+           for flip in (False, True)]
+    return {"dxt_hq_cluster_topk4": topk4, "etc1_hq_search": search,
+            "etc1_hq_fit_search": fit}
 
 
 #: Kernels whose registers, shared memory and occupancy phase 3 prints:
@@ -1193,6 +1286,7 @@ OCCUPANCY = {
     "dxt5_downsample": ("texcomp_dxt_downsample_info", ((1,), "")),
     "dxt_hq_cluster_topk4": ("texcomp_dxt_hq_cluster_topk4_info", ((), "")),
     "etc1_hq_search": ("texcomp_etc1_hq_search_info", ((0, 1), "flip")),
+    "etc1_hq_fit_search": ("texcomp_etc1_hq_fit_search_info", ((0, 1), "flip")),
     "etc1_encode": ("texcomp_etc1_encode_info", ((2, 0, 1, 3), "s")),
     "etc1_downsample": ("texcomp_etc1_downsample_info", ((2, 0, 1, 3), "s")),
     "pvrtc_morph": ("texcomp_pvrtc_info", ((0,), "")),
@@ -1264,7 +1358,9 @@ SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E"
         "pvrtc_upscale_modulate": "upscale_modulate_kernel",
         "pvrtc_modes_pack": "modes_pack_kernelILi1E",
         "pvrtc_upscale_modulate_halo": "upscale_modulate_halo_kernel",
-        "pvrtc_modes_pack_strip": "modes_pack_strip_kernel"}
+        "pvrtc_modes_pack_strip": "modes_pack_strip_kernel",
+        "etc1_hq_search": "hq_search_kernelILb0ELb0E",
+        "etc1_hq_fit_search": "hq_search_kernelILb0ELb1E"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1669,6 +1765,23 @@ def _difference(got, want) -> float:
     return worst
 
 
+def fit_against_candidates(cases) -> None:
+    """Each case of the fused fit equals the search kernel given the twin's
+    candidates (``codecs.etc.hq_candidate_words``), word for word."""
+    for label, (px, _, flip) in cases:
+        rgb = torch.stack([px & 255, (px >> 8) & 255, (px >> 16) & 255], dim=-1)
+        words = etc.hq_candidate_words(rgb, flip).contiguous()
+        got = etc_cuda.etc1_hq_search_cuda(px, None, flip)
+        want = etc_cuda.etc1_hq_search_cuda(px, words, flip)
+        torch.cuda.synchronize()
+        err = _difference(got, want)
+        if err != 0:
+            fail(f"etc1_hq_fit_search [{label}] differs from the search over "
+                 f"hq_candidate_words: max abs err {err}")
+    print(f"[kernels] etc1_hq_fit_search: {len(cases)} cases equal to "
+          f"etc1_hq_search over hq_candidate_words", flush=True)
+
+
 def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                   rgb_hq: torch.Tensor, atlas: torch.Tensor) -> dict:
     """Kernel vs plain on the card; returns per-kernel results."""
@@ -1726,6 +1839,8 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
                 per.append(f"{label} {t:.4f} ms (bound {b_ms:.4f} by {b_by})")
             print(f"[kernels] {name} on its other inputs: {'; '.join(per)}",
                   flush=True)
+        if name == "etc1_hq_fit_search":
+            fit_against_candidates(cases[name])
         if name in ("etc1_encode", "etc1_downsample"):
             # Every strategy's time: the search differs by strategy.
             per = []
@@ -2114,9 +2229,9 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> dict:
          ("dxt_hq_cluster_topk4", "dxt1_encode")),
         ('EtcCompressor(quality="high") compress',
          compress(EtcCompressor(quality="high", device="cuda"), Format.RGB),
-         ("etc1_hq_search",)),
+         ("etc1_hq_fit_search",)),
         ('transcode_dxt1_to_etc1(quality="high")', transcode(dxt1_src),
-         ("dxt1_decode", "etc1_hq_search")),
+         ("dxt1_decode", "etc1_hq_fit_search")),
         ('PvrtcCompressor("high") compress',
          compress(PvrtcCompressor("high", device="cuda"), Format.RGBA),
          ("pvrtc_morph", "pvrtc_upscale_modulate", "pvrtc_modes_pack")),
@@ -2588,7 +2703,7 @@ def pipeline_mixed_quality(launches: Launches, gpu: str) -> None:
     pipe = AssetPipeline(batch_size=PIPELINE_BATCH)
     got, wall = launches.run(
         f"pipeline mixed quality ({n_hq} of {len(assets)} high)",
-        ("dxt_hq_cluster_topk4", "etc1_hq_search", "pvrtc_morph",
+        ("dxt_hq_cluster_topk4", "etc1_hq_fit_search", "pvrtc_morph",
          "pvrtc_morph_batched"),
         lambda: _fleet_run(pipe, assets))
     _same_results(got, _plain_run(assets), "pipeline mixed quality")
@@ -2848,8 +2963,10 @@ def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
     main_transcode(payloads, launches, gpu)
     pvrtc_img = main_pvrtc(pv, launches, gpu)
     pvrtc_hq_payloads = main_hq(hq_images, launches, gpu)
+    # The atlas variants run in phase 7; the HQ search over given candidates
+    # in phase 3 only, since the card's HQ encode fits its own.
     missing = [k for k, n in launches.total.items()
-               if n == 0 and k not in ATLAS_KERNELS]
+               if n == 0 and k not in ATLAS_KERNELS + ("etc1_hq_search",)]
     if missing:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)

@@ -18,9 +18,10 @@ needs a few hundred MiB of scratch, not several GiB. This module is the
 ground truth for the CUDA kernels in ``texcomp_torch/csrc/etc.cu``.
 
 The high-quality encoder (``quality="high"``, :func:`encode_etc1_hq_blocks`)
-scores some 40 candidate base pairs per flip through the same exhaustive
-search, refits twice by least squares and probes +-1 around the refit; its
-search step is a kernel too (``ops/etc_cuda.etc1_hq_search``).
+scores 40 candidate base pairs per flip through the same exhaustive
+search, refits twice by least squares and probes +-1 around the refit. On
+the card one kernel per flip fits the candidates and searches them
+(``ops/etc_cuda.etc1_hq_encode_blocks``); this module is its twin.
 """
 
 from __future__ import annotations
@@ -669,23 +670,28 @@ def _hq_flip(chunk: torch.Tensor, flip: bool, search):
         return search(chunk, cands, flip)
 
 
+def hq_pick_flip(lr, tb) -> torch.Tensor:
+    """The two flips' winners (hi, lo, err) -> (N, 8) uint8: the top/bottom
+    block where its error is less, else the left/right one (which wins
+    ties)."""
+    take_t = tb[2] < lr[2]
+    return words_to_bytes(torch.where(take_t, tb[0], lr[0]),
+                          torch.where(take_t, tb[1], lr[1]))
+
+
 def encode_etc1_hq_blocks(rgb: torch.Tensor, search=hq_search) -> torch.Tensor:
     """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks, never worse
     than the reference's SMALLER_ERROR (its truncated bases are the first
     candidate). ``search(rgb, cands, flip) -> (hi, lo, err)`` runs one
     flip's search (default :func:`hq_search`, plain PyTorch; the image ops
-    pass the kernel's dispatch). :data:`ENCODE_CHUNK` blocks at a time."""
+    pass the plain route's dispatch). :data:`ENCODE_CHUNK` blocks at a
+    time."""
     rgb = rgb.to(torch.int32)
     if rgb.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.uint8, device=rgb.device)
-    out = []
-    for chunk in rgb.split(ENCODE_CHUNK):
-        hi, lo, err = _hq_flip(chunk, False, search)
-        hi_t, lo_t, err_t = _hq_flip(chunk, True, search)
-        take_t = err_t < err  # left/right wins ties
-        out.append(words_to_bytes(torch.where(take_t, hi_t, hi),
-                                  torch.where(take_t, lo_t, lo)))
-    return torch.cat(out)
+    return torch.cat([hq_pick_flip(_hq_flip(chunk, False, search),
+                                   _hq_flip(chunk, True, search))
+                      for chunk in rgb.split(ENCODE_CHUNK)])
 
 # ---------------------------------------------------------------------------
 # Solid blocks and pad functors

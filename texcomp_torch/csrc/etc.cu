@@ -1,13 +1,16 @@
 // ETC1 encode (four strategies), decode, one fused mip level, and the HQ
 // search, for Hopper (sm_90a).
 //
-// Four kernels, integer arithmetic only, each byte-exact with the plain
-// PyTorch codec in texcomp_torch/codecs/etc.py, which follows the
-// reference's etc_compressor.cc. The three encoders share one packed
-// subblock search (below): pixels and candidate colours packed
-// r | g << 8 | b << 16, a pixel's error against a colour from one __dp4a.
+// Four kernels, each byte-exact with the plain PyTorch codec in
+// texcomp_torch/codecs/etc.py, which follows the reference's
+// etc_compressor.cc: integer arithmetic, but for the HQ candidate fit,
+// which takes the twin's float32 steps one by one. The three encoders
+// share one packed subblock search (below): pixels and candidate colours
+// packed r | g << 8 | b << 16, a pixel's error against a colour from one
+// __dp4a.
 // The reference encode, the fused level and the decode run one thread per
-// 4x4 block, the HQ search 8 lanes per block over its candidates. At the
+// 4x4 block, the HQ search 8 lanes per block over its candidates, which
+// the kernel is given or, in its other variant, fits itself. At the
 // bottom, micro-kernels measure the card's rate for the search's inner
 // loop (the operation bound of the encoders). The entry points have a
 // plain C interface: pointers, ints and a stream, returning
@@ -24,10 +27,12 @@
 // Errors are exact in int32: a pixel's squared error is at most
 // 3 * 255^2 and a subblock's at most 8 times that.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "etc_hq_tables.cuh"
 
 namespace {
 
@@ -747,6 +752,496 @@ __device__ __forceinline__ void hq_stage(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The HQ candidate fit: the 40 candidates of one flip
+// (codecs/etc._hq_base_candidates, in its order, which is the tie-break
+// order), computed inside the search launch (hq_search_kernel<kFlip, true>).
+//
+// The twin computes them in float32, op by op. Here every float step is
+// __fadd_rn / __fsub_rn / __fmul_rn, so that nvcc contracts nothing into
+// a fused multiply-add, and torch.round is __float2int_rn (half to even).
+// Most values of the fit are multiples of 1/8 far inside float32's 24
+// bits, exact in any order; the alternating fit's 16-pixel error sum and
+// the re-solves' penalised errors are not, and keep the twin's order.
+// Lane l of a block takes codeword l in both cluster fits; the lanes'
+// results merge by shuffles on lexicographic (error, index), which is the
+// twin's first-occurrence argmin and its strict '<' best and runner-up.
+// ---------------------------------------------------------------------------
+
+constexpr int kHqCands = 40;     // candidates a flip
+constexpr int kHqCuts = 165;     // cuts of a subblock's 8 sorted pixels
+static_assert(sizeof(kHqMu) == sizeof(float) * kHqCuts * 8 &&
+                  sizeof(kHqConst) == sizeof(kHqMu),
+              "one (cut, codeword) entry each");
+constexpr int kHqFitIters = 2;   // alternating rounds before the error
+constexpr int kHqNone = 0x7FFFFFFF;
+// Resident CTAs per SM the fit variant is built for. On the H100, a flip
+// of a 1024^2 image: at 1 it took 241 registers and 1.45 ms; capped for
+// 3, 80 registers and 1.15 ms.
+constexpr int kHqFitCtas = 3;
+
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float clamp255f(float v) {
+  return fminf(fmaxf(v, 0.0f), 255.0f);
+}
+
+__device__ __forceinline__ int channel(uint32_t p, int ch) {
+  return int((p >> (8 * ch)) & 255u);
+}
+
+// A subblock's quantized bases as its packed candidate word
+// (codecs/etc.pack_q_word).
+__device__ __forceinline__ uint32_t pack_q(const int (&q555)[3],
+                                           const int (&q444)[3]) {
+  return uint32_t(q555[0]) | (uint32_t(q555[1]) << 5) |
+         (uint32_t(q555[2]) << 10) | (uint32_t(q444[0]) << 15) |
+         (uint32_t(q444[1]) << 19) | (uint32_t(q444[2]) << 23);
+}
+
+// Real-valued bases, rounded half to even and quantized to 555 and 444
+// (codecs/etc._quantize_pair, one subblock).
+__device__ __forceinline__ void quantize_real(const float (&b)[3],
+                                              int (&q555)[3], int (&q444)[3]) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int r = __float2int_rn(b[ch]);
+    q555[ch] = quantize8(r, 5);
+    q444[ch] = quantize8(r, 4);
+  }
+}
+
+__device__ __forceinline__ bool lex_less(float e, int k, float f, int j) {
+  return e < f || (e == f && k < j);
+}
+
+// The least (e, k) of the 8 lanes of a block, on every lane.
+__device__ __forceinline__ void group_min_f(float& e, int& k) {
+#pragma unroll
+  for (int o = 1; o < kHqLanes; o <<= 1) {
+    const float oe = __shfl_xor_sync(kFull, e, o);
+    const int ok = __shfl_xor_sync(kFull, k, o);
+    if (lex_less(oe, ok, e, k)) {
+      e = oe;
+      k = ok;
+    }
+  }
+}
+
+// The least and second-least (e, k) of the 8 lanes' own two (each lane's
+// pair ordered, the k of different lanes distinct), on every lane.
+__device__ __forceinline__ void group_top2(float& e1, int& k1, float& e2,
+                                           int& k2) {
+#pragma unroll
+  for (int o = 1; o < kHqLanes; o <<= 1) {
+    const float f1 = __shfl_xor_sync(kFull, e1, o);
+    const float f2 = __shfl_xor_sync(kFull, e2, o);
+    const int j1 = __shfl_xor_sync(kFull, k1, o);
+    const int j2 = __shfl_xor_sync(kFull, k2, o);
+    if (lex_less(f1, j1, e1, k1)) {
+      if (!lex_less(e1, k1, f2, j2)) {
+        e1 = f2;
+        k1 = j2;
+      }
+      e2 = e1;
+      k2 = k1;
+      e1 = f1;
+      k1 = j1;
+    } else if (lex_less(f1, j1, e2, k2)) {
+      e2 = f1;
+      k2 = j1;
+    }
+  }
+}
+
+// Subblock kS's channel sums under flip kFlip.
+template <bool kFlip, int kS>
+__device__ __forceinline__ void sub_sums(const uint32_t (&px)[16], int (&sum)[3]) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    sum[ch] = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum[ch] += channel(px[member<kFlip>(kS, j)], ch);
+  }
+}
+
+__device__ __forceinline__ void sort_pair(float& a, float& b) {
+  const float lo = fminf(a, b);
+  b = fmaxf(a, b);
+  a = lo;
+}
+
+// The exhaustive fit's inputs of subblock kS (codecs/etc.
+// _cluster_fit_enum_bases' subblock): its channel means, and the prefix
+// sums T[0..8] of its 8 centred luminances in ascending order (Batcher's
+// 19-comparator network).
+template <bool kFlip, int kS>
+__device__ __forceinline__ void enum_inputs(const uint32_t (&px)[16],
+                                            const int (&sum)[3], float (&mean)[3],
+                                            float (&cum)[9]) {
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) mean[ch] = fmul(float(sum[ch]), 0.125f);
+  float t[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t p = px[member<kFlip>(kS, j)];
+    t[j] = fadd(fadd(fsub(float(channel(p, 0)), mean[0]),
+                     fsub(float(channel(p, 1)), mean[1])),
+                fsub(float(channel(p, 2)), mean[2]));
+  }
+  constexpr int kNet[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3},
+                               {4, 6}, {5, 7}, {1, 2}, {5, 6}, {0, 4}, {1, 5},
+                               {2, 6}, {3, 7}, {2, 4}, {3, 5}, {1, 2}, {3, 4},
+                               {5, 6}};
+#pragma unroll
+  for (int c = 0; c < 19; ++c) sort_pair(t[kNet[c][0]], t[kNet[c][1]]);
+  cum[0] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) cum[j + 1] = fadd(cum[j], t[j]);
+}
+
+// The closed-form error of cut (p1, p2, p3) under the codeword whose
+// coefficients are c13 = a - b and c2 = -2a and whose constant is konst:
+// const - 2 ((T[p1] + T[p3]) c13 + T[p2] c2).
+__device__ __forceinline__ float enum_err(const float* cum, int p1, int p2,
+                                          int p3, float c13, float c2,
+                                          float konst) {
+  const float tm = fadd(fmul(fadd(cum[p1], cum[p3]), c13), fmul(cum[p2], c2));
+  return fsub(konst, fmul(2.0f, tm));
+}
+
+// The cut after (p1, p2, p3) in the nesting 0 <= p1 <= p2 <= p3 <= 8.
+__device__ __forceinline__ void next_cut(int& p1, int& p2, int& p3) {
+  if (p3 < 8) {
+    ++p3;
+  } else if (p2 < 8) {
+    p3 = ++p2;
+  } else {
+    p3 = p2 = ++p1;
+  }
+}
+
+// Lane cw's two least (error, 8 cut + cw) over a subblock's 165 cuts, in
+// cut order by strict '<'. cum is the subblock's T[0..8] in shared memory.
+__device__ __forceinline__ void enum_top2(const float* cum, int cw, float c13,
+                                          float c2, const float* konst,
+                                          float& e1, int& k1, float& e2,
+                                          int& k2) {
+  e1 = e2 = INFINITY;
+  k1 = k2 = kHqNone;
+  int p1 = 0, p2 = 0, p3 = 0;
+#pragma unroll 3
+  for (int k = cw; k < 8 * kHqCuts; k += 8, next_cut(p1, p2, p3)) {
+    const float e = enum_err(cum, p1, p2, p3, c13, c2, konst[k]);
+    if (e < e1) {
+      e2 = e1;
+      k2 = k1;
+      e1 = e;
+      k1 = k;
+    } else if (e < e2) {
+      e2 = e;
+      k2 = k;
+    }
+  }
+}
+
+// A subblock's re-solve with its base held, per channel, to the 555
+// window [lo_c, hi_c] that the other subblock's winner `other` allows
+// (offsets lo_off, hi_off): the least error + 8 * penalty over all cuts
+// and codewords, the penalty the squared distance of each channel's
+// optimal base from [8 lo_c, 8 hi_c + 7]; then that base clamped into the
+// window and quantized, its 555 code clamped to [lo_c, hi_c] too
+// (codecs/etc._cluster_fit_enum_bases' constrained). Returns its word.
+__device__ __forceinline__ uint32_t enum_constrained(
+    const float* cum, const float (&mean)[3], int cw, float c13, float c2,
+    const float* mu, const float* konst, const int (&other)[3], int lo_off,
+    int hi_off) {
+  int lo_c[3], hi_c[3];
+  float lo_v[3], hi_v[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    lo_c[ch] = min(max(other[ch] + lo_off, 0), 31);
+    hi_c[ch] = min(max(other[ch] + hi_off, 0), 31);
+    lo_v[ch] = float(lo_c[ch] * 8);
+    hi_v[ch] = float(hi_c[ch] * 8 + 7);
+  }
+  float best = INFINITY;
+  int k = kHqNone;
+  int p1 = 0, p2 = 0, p3 = 0;
+#pragma unroll 3
+  for (int kc = cw; kc < 8 * kHqCuts; kc += 8, next_cut(p1, p2, p3)) {
+    const float m = mu[kc];
+    float pen = 0.0f;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float b_opt = fsub(mean[ch], m);
+      const float d = fadd(fmaxf(fsub(lo_v[ch], b_opt), 0.0f),
+                           fmaxf(fsub(b_opt, hi_v[ch]), 0.0f));
+      pen = ch == 0 ? fmul(d, d) : fadd(pen, fmul(d, d));
+    }
+    const float e = fadd(enum_err(cum, p1, p2, p3, c13, c2, konst[kc]),
+                         fmul(8.0f, pen));
+    if (e < best) {
+      best = e;
+      k = kc;
+    }
+  }
+  group_min_f(best, k);
+  int q555[3], q444[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float b = fminf(fmaxf(fsub(mean[ch], mu[k]), lo_v[ch]), hi_v[ch]);
+    const int r = __float2int_rn(b);
+    q555[ch] = min(max(quantize8(r, 5), lo_c[ch]), hi_c[ch]);
+    q444[ch] = quantize8(r, 4);
+  }
+  return pack_q(q555, q444);
+}
+
+// The squared error of pixel p against base + m, each channel clamped to
+// 0..255 (exact: multiples of 1/64 below 2^18).
+__device__ __forceinline__ float mod_err(uint32_t p, const float (&base)[3],
+                                         float m) {
+  float e = 0.0f;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float d = fsub(clamp255f(fadd(base[ch], m)), float(channel(p, ch)));
+    e = ch == 0 ? fmul(d, d) : fadd(e, fmul(d, d));
+  }
+  return e;
+}
+
+// The luminance-split seed of subblock kS (codecs/etc._cluster_fit_bases'
+// split_seed): the midpoint of the means of its pixels at or above its mean
+// luminance and of the rest, rounded half up to eighths, in integers.
+template <bool kFlip, int kS>
+__device__ __forceinline__ void split_seed(const uint32_t (&px)[16],
+                                           const int (&sum)[3], float (&seed)[3]) {
+  int lum[8], slum = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t p = px[member<kFlip>(kS, j)];
+    lum[j] = channel(p, 0) + channel(p, 1) + channel(p, 2);
+    slum += lum[j];
+  }
+  int n_hi = 0, s_hi[3] = {0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool hi = 8 * lum[j] >= slum;
+    n_hi += hi;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      s_hi[ch] += hi ? channel(px[member<kFlip>(kS, j)], ch) : 0;
+  }
+  const int hi_n = max(n_hi, 1), lo_n = max(8 - n_hi, 1);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int a = 8 * (s_hi[ch] * lo_n + (sum[ch] - s_hi[ch]) * hi_n);
+    const int b = 2 * hi_n * lo_n;
+    seed[ch] = fmul(float((2 * a + b) / (2 * b)), 0.125f);
+  }
+}
+
+// One codeword's alternating fit from the bases b (codecs/etc.
+// _cluster_fit_bases), updated in place: kHqFitIters rounds of each
+// pixel's first least-error modifier of mods (a, b, -a, -b) against the
+// real bases, then the bases that least squares gives those modifiers
+// (the subblock mean of pixel - modifier, clamped); returns the error of
+// the last bases, each pixel's least over the modifiers, summed in
+// _sum16_lanes' order.
+template <bool kFlip>
+__device__ __forceinline__ float alt_fit(const uint32_t (&px)[16],
+                                         const int (&mods)[4], float (&b)[2][3]) {
+  float mf[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) mf[m] = float(mods[m]);
+#pragma unroll 1
+  for (int it = 0; it < kHqFitIters; ++it) {
+    int rsum[2][3] = {{0, 0, 0}, {0, 0, 0}};
+#pragma unroll
+    for (int p = 0; p < 16; ++p) {
+      const int s = (kFlip ? p < 8 : (p & 3) < 2) ? 0 : 1;
+      float e = mod_err(px[p], b[s], mf[0]);
+      int mod = mods[0];
+#pragma unroll
+      for (int m = 1; m < 4; ++m) {
+        const float em = mod_err(px[p], b[s], mf[m]);
+        if (em < e) {
+          e = em;
+          mod = mods[m];
+        }
+      }
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) rsum[s][ch] += channel(px[p], ch) - mod;
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        b[s][ch] = clamp255f(fmul(float(rsum[s][ch]), 0.125f));
+  }
+  float e[16];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) {
+    const int s = (kFlip ? p < 8 : (p & 3) < 2) ? 0 : 1;
+    e[p] = mod_err(px[p], b[s], mf[0]);
+#pragma unroll
+    for (int m = 1; m < 4; ++m) e[p] = fminf(e[p], mod_err(px[p], b[s], mf[m]));
+  }
+#pragma unroll
+  for (int w = 8; w >= 1; w >>= 1)
+#pragma unroll
+    for (int k = 0; k < w; ++k) e[k] = fadd(e[k], e[k + w]);
+  return e[0];
+}
+
+// The 40 candidate word pairs of the block into w1s[k], w2s[k], in
+// codecs/etc._hq_base_candidates' order. Every lane of the block computes
+// the same words (lane l takes codeword l in the cluster fits and the
+// merges give every lane their result); lane 0 stores them, but the
+// probes, which lane l stores for j = l (mod 8). mu and konst are the
+// exhaustive fit's tables (kHqMu, kHqConst) in shared memory; cums takes
+// the block's two subblocks' prefix sums T (2 x 9 floats of shared
+// memory), which the cut loops read at indices that vary with the cut.
+template <bool kFlip>
+__device__ __forceinline__ void hq_fit(const uint32_t (&px)[16], int l,
+                                       const float* mu, const float* konst,
+                                       float* cums, uint32_t* w1s,
+                                       uint32_t* w2s) {
+  const bool store = l == 0;
+  auto put = [&](int k, uint32_t w1, uint32_t w2) {
+    if (store) {
+      w1s[k] = w1;
+      w2s[k] = w2;
+    }
+  };
+  int sum[2][3];
+  sub_sums<kFlip, 0>(px, sum[0]);
+  sub_sums<kFlip, 1>(px, sum[1]);
+
+  // 0-27: the truncated and the rounded subblock averages, the rounded
+  // pair with either 555 code clamped into the other's differential
+  // window, and the 24 probes around the rounded pair.
+  int r555[2][3], r444[2][3];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      r555[s][ch] = quantize8(sum[s][ch] >> 3, 5);
+      r444[s][ch] = quantize8(sum[s][ch] >> 3, 4);
+    }
+  put(0, q_word(sum[0][0] >> 3, sum[0][1] >> 3, sum[0][2] >> 3),
+      q_word(sum[1][0] >> 3, sum[1][1] >> 3, sum[1][2] >> 3));
+  const uint32_t r1 = pack_q(r555[0], r444[0]), r2 = pack_q(r555[1], r444[1]);
+  put(1, r1, r2);
+  int c555[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    c555[ch] = min(max(r555[1][ch], r555[0][ch] - 4), r555[0][ch] + 3);
+  put(2, r1, pack_q(c555, r444[1]));
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    c555[ch] = min(max(r555[0][ch], r555[1][ch] - 3), r555[1][ch] + 4);
+  put(3, pack_q(c555, r444[0]), r2);
+#pragma unroll
+  for (int j = l; j < kHqProbes; j += kHqLanes) {
+    uint32_t p1, p2;
+    probe_words(r1, r2, j, p1, p2);
+    w1s[4 + j] = p1;
+    w2s[4 + j] = p2;
+  }
+
+  // 34-39: the exhaustive fit (lane = codeword), its top 2, the two
+  // re-solves with the other subblock's winner fixed, and the winner with
+  // either 555 code clamped into the other's window.
+  int a, b;
+  cb_pair(l, a, b);
+  const float c13 = kHqCoef13[l], c2 = kHqCoef2[l];
+  float mean[2][3], cum[2][9];
+  enum_inputs<kFlip, 0>(px, sum[0], mean[0], cum[0]);
+  enum_inputs<kFlip, 1>(px, sum[1], mean[1], cum[1]);
+  if (store) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < 9; ++j) cums[9 * s + j] = cum[s][j];
+  }
+  __syncwarp();
+  float win[2][3];
+  int w555[2][3], w444[2][3];
+  uint32_t ww[2], ws[2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    float e1, e2;
+    int k1, k2;
+    enum_top2(cums + 9 * s, l, c13, c2, konst, e1, k1, e2, k2);
+    group_top2(e1, k1, e2, k2);
+    float sec[3];
+    int s555[3], s444[3];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      win[s][ch] = clamp255f(fsub(mean[s][ch], mu[k1]));
+      sec[ch] = clamp255f(fsub(mean[s][ch], mu[k2]));
+    }
+    quantize_real(win[s], w555[s], w444[s]);
+    quantize_real(sec, s555, s444);
+    ww[s] = pack_q(w555[s], w444[s]);
+    ws[s] = pack_q(s555, s444);
+  }
+  put(34, ww[0], ww[1]);
+  put(35, ws[0], ws[1]);
+  put(36, ww[0], enum_constrained(cums + 9, mean[1], l, c13, c2, mu, konst,
+                                  w555[0], -4, 3));
+  put(37, enum_constrained(cums, mean[0], l, c13, c2, mu, konst, w555[1], -3,
+                           4),
+      ww[1]);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    c555[ch] = min(max(w555[1][ch], w555[0][ch] - 4), w555[0][ch] + 3);
+  put(38, ww[0], pack_q(c555, w444[1]));
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    c555[ch] = min(max(w555[0][ch], w555[1][ch] - 3), w555[1][ch] + 4);
+  put(39, pack_q(c555, w444[0]), ww[1]);
+
+  // 28-33: the alternating fit (lane = codeword) from three seeds, the
+  // subblock means, the luminance split and the exhaustive winner's real
+  // bases; per seed the best and the runner-up codeword's bases.
+  float split[2][3];
+  split_seed<kFlip, 0>(px, sum[0], split[0]);
+  split_seed<kFlip, 1>(px, sum[1], split[1]);
+  const int mods[4] = {a, b, -a, -b};
+  const int lane0 = threadIdx.x & 31 & ~(kHqLanes - 1);
+#pragma unroll 1
+  for (int seed = 0; seed < 3; ++seed) {
+    float bs[2][3];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch)
+        bs[s][ch] = seed == 0 ? mean[s][ch] : seed == 1 ? split[s][ch] : win[s][ch];
+    float e1 = alt_fit<kFlip>(px, mods, bs), e2 = INFINITY;
+    int k1 = l, k2 = kHqNone;
+    group_top2(e1, k1, e2, k2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int src = lane0 | (r == 0 ? k1 : k2);
+      uint32_t w[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float q[3];
+        int q555[3], q444[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) q[ch] = __shfl_sync(kFull, bs[s][ch], src);
+        quantize_real(q, q555, q444);
+        w[s] = pack_q(q555, q444);
+      }
+      put(28 + 2 * seed + r, w[0], w[1]);
+    }
+  }
+}
+
 // Replaces texcomp/ops/etc_pallas.py:_etc1_hq_kernel (one flip per launch,
 // as there).
 //
@@ -775,12 +1270,19 @@ __device__ __forceinline__ void hq_stage(
 // search, 2 subblocks x 8 codewords x 8 pixels x 4 colours, 512 (pixel,
 // colour) pairs; chip_smoke.py measures the rate of that inner loop on the
 // card for the bound.
-template <bool kFlip>
-__global__ void __launch_bounds__(kThreads)
+//
+// With kFit the kernel takes no candidates (cands is null, k_cands is
+// kHqCands): the block's 8 lanes fit its 40 (hq_fit) into shared memory,
+// in place of the staging, and lane l searches k = l (mod 8) from there.
+// The candidates never leave the SM; the fit is float and integer issue,
+// some 20-25 thousand instructions a lane, so this variant is built for
+// kHqFitCtas CTAs per SM. A minimum of 0 leaves the other as it was built
+// without one (a minimum of 1 let it take 96 registers, not 74).
+template <bool kFlip, bool kFit>
+__global__ void __launch_bounds__(kThreads, kFit ? kHqFitCtas : 0)
 hq_search_kernel(const int32_t* __restrict__ pixels, int n,
                  const uint32_t* __restrict__ cands, int k_cands,
                  int32_t* __restrict__ out) {
-  __shared__ uint32_t stage[2][2][kHqBlocks][kHqChunk];
   const int g = threadIdx.x / kHqLanes, l = threadIdx.x % kHqLanes;
   const long long block0 = (long long)blockIdx.x * kHqBlocks;
   const long long i = block0 + g;
@@ -827,23 +1329,44 @@ hq_search_kernel(const int32_t* __restrict__ pixels, int n,
   };
 
   // Candidates.
-  const int n_chunks = (k_cands + kHqChunk - 1) / kHqChunk;
-  if (n_chunks > 0) hq_stage(stage[0], cands, n, k_cands, block0, 0);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks)
-      hq_stage(stage[(c + 1) & 1], cands, n, k_cands, block0, c + 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  if constexpr (kFit) {
+    __shared__ float tables[2][kHqCuts * 8];
+    __shared__ float cums[kHqBlocks][2 * 9];
+    __shared__ uint32_t fit[2][kHqBlocks][kHqCands];
+    for (int e = threadIdx.x; e < kHqCuts * 8; e += kThreads) {
+      tables[0][e] = kHqMu[e];
+      tables[1][e] = kHqConst[e];
+    }
     __syncthreads();
-    const int k = c * kHqChunk + l;
-    if (k < k_cands) {
-      const uint32_t w1 = stage[c & 1][0][g][l], w2 = stage[c & 1][1][g][l];
+    hq_fit<kFlip>(px, l, tables[0], tables[1], cums[g], fit[0][g], fit[1][g]);
+    __syncwarp();
+#pragma unroll 1
+    for (int k = l; k < kHqCands; k += kHqLanes) {
+      const uint32_t w1 = fit[0][g][k], w2 = fit[1][g][k];
       int cws;
       const int e = flip_search<kFlip>(px, w1, w2, cws);
       consider(e, k, w1, w2, cws);
     }
-    __syncthreads();
+  } else {
+    __shared__ uint32_t stage[2][2][kHqBlocks][kHqChunk];
+    const int n_chunks = (k_cands + kHqChunk - 1) / kHqChunk;
+    if (n_chunks > 0) hq_stage(stage[0], cands, n, k_cands, block0, 0);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks)
+        hq_stage(stage[(c + 1) & 1], cands, n, k_cands, block0, c + 1);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncthreads();
+      const int k = c * kHqChunk + l;
+      if (k < k_cands) {
+        const uint32_t w1 = stage[c & 1][0][g][l], w2 = stage[c & 1][1][g][l];
+        int cws;
+        const int e = flip_search<kFlip>(px, w1, w2, cws);
+        consider(e, k, w1, w2, cws);
+      }
+      __syncthreads();
+    }
   }
 
   // Refits: refit 0 from the winner so far (the all-zero words when there
@@ -1042,8 +1565,21 @@ int texcomp_etc1_hq_search(const void* px, int n, const void* cands,
   const uint32_t* c = static_cast<const uint32_t*>(cands);
   int32_t* o = static_cast<int32_t*>(out);
   const int grid = int(((long long)n + kHqBlocks - 1) / kHqBlocks);
-  if (flip) hq_search_kernel<true><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
-  else hq_search_kernel<false><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
+  if (flip) hq_search_kernel<true, false><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
+  else hq_search_kernel<false, false><<<grid, kThreads, 0, s>>>(p, n, c, k_cands, o);
+  return int(cudaGetLastError());
+}
+
+// The HQ search of one flip with its candidates fitted in the kernel: (n,
+// 16) packed pixels in, (3, n) out as texcomp_etc1_hq_search's.
+int texcomp_etc1_hq_fit_search(const void* px, int n, int flip, void* out,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* p = static_cast<const int32_t*>(px);
+  int32_t* o = static_cast<int32_t*>(out);
+  const int grid = int(((long long)n + kHqBlocks - 1) / kHqBlocks);
+  if (flip) hq_search_kernel<true, true><<<grid, kThreads, 0, s>>>(p, n, nullptr, kHqCands, o);
+  else hq_search_kernel<false, true><<<grid, kThreads, 0, s>>>(p, n, nullptr, kHqCands, o);
   return int(cudaGetLastError());
 }
 
@@ -1063,8 +1599,14 @@ int texcomp_etc1_downsample_info(int strategy, int* out) {
 }
 
 int texcomp_etc1_hq_search_info(int flip, int* out) {
-  const void* fn = flip ? reinterpret_cast<const void*>(hq_search_kernel<true>)
-                        : reinterpret_cast<const void*>(hq_search_kernel<false>);
+  const void* fn = flip ? reinterpret_cast<const void*>(hq_search_kernel<true, false>)
+                        : reinterpret_cast<const void*>(hq_search_kernel<false, false>);
+  return texcomp::kernel_info(fn, kThreads, out);
+}
+
+int texcomp_etc1_hq_fit_search_info(int flip, int* out) {
+  const void* fn = flip ? reinterpret_cast<const void*>(hq_search_kernel<true, true>)
+                        : reinterpret_cast<const void*>(hq_search_kernel<false, true>);
   return texcomp::kernel_info(fn, kThreads, out);
 }
 

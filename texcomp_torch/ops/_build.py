@@ -49,6 +49,8 @@ SIGNATURES = {
     "texcomp_etc1_downsample": [_P, _I, _I, _P, _I, _P],
     "texcomp_etc1_hq_search": [_P, _I, _P, _I, _I, _P, _P],
     "texcomp_etc1_hq_search_info": [_I, _P],
+    "texcomp_etc1_hq_fit_search": [_P, _I, _I, _P, _P],
+    "texcomp_etc1_hq_fit_search_info": [_I, _P],
     "texcomp_etc1_encode_info": [_I, _P],
     "texcomp_etc1_downsample_info": [_I, _P],
     "texcomp_etc1_rate": [_I, _I, _I, _P, _P],

@@ -20,6 +20,7 @@ LAUNCHES = {"dxt1_encode": 0, "dxt5_encode": 0, "dxt1_decode": 0,
             "pvrtc_morph": 0, "pvrtc_morph_batched": 0,
             "pvrtc_upscale_modulate": 0, "pvrtc_modes_pack": 0,
             "dxt_hq_cluster_topk4": 0, "etc1_hq_search": 0,
+            "etc1_hq_fit_search": 0,
             "pvrtc_upscale_modulate_halo": 0, "pvrtc_modes_pack_strip": 0}
 
 

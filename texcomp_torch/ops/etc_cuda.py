@@ -9,9 +9,11 @@ from one to the other.
 
 The HQ search (``quality="high"``) takes (N, 16) int32 packed pixels
 (r | g << 8 | b << 16) and (K, 2, N) int32 packed candidate words
-(``codecs.etc.pack_q_word``), one flip per call, and returns the (hi, lo,
-err) of each block's winner; :func:`etc1_hq_encode_padded_image` and the
-HQ transcode run the whole HQ encode around it.
+(``codecs.etc.pack_q_word``), or None for the 40 candidates of
+``codecs.etc.hq_candidate_words``, which the kernel then fits itself; one
+flip per call, one launch, returning the (hi, lo, err) of each block's
+winner. :func:`etc1_hq_encode_blocks` runs the whole HQ encode around it:
+on the card two such launches with no candidates, on the CPU the twin.
 
 Encode takes an (h, w, 3 | 4) uint8 image (a fourth channel is ignored)
 and a block grid at least that large; pixels beyond the image replicate
@@ -77,13 +79,19 @@ def pack_pixels(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb[:, :, 0] | (rgb[:, :, 1] << 8) | (rgb[:, :, 2] << 16)).contiguous()
 
 
-def etc1_hq_search_plain(pixels: torch.Tensor, cands: torch.Tensor,
+def etc1_hq_search_plain(pixels: torch.Tensor, cands: torch.Tensor | None,
                          flip: bool):
     """(N, 16) int32 packed pixels, (K, 2, N) int32 candidate words ->
-    (hi, lo, err) (N,) int32: ``codecs.etc.hq_search``."""
+    (hi, lo, err) (N,) int32: ``codecs.etc.hq_search``. With ``cands``
+    None the candidates are ``codecs.etc.hq_candidate_words``, made
+    :data:`codecs.etc.ENCODE_CHUNK` blocks at a time."""
     rgb = torch.stack([pixels & 255, (pixels >> 8) & 255,
                        (pixels >> 16) & 255], dim=-1)
-    return etc.hq_search(rgb, cands, flip)
+    if cands is not None:
+        return etc.hq_search(rgb, cands, flip)
+    parts = [etc.hq_search(c, etc.hq_candidate_words(c, flip), flip)
+             for c in rgb.split(etc.ENCODE_CHUNK)]
+    return tuple(torch.cat(w) for w in zip(*parts))
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +141,23 @@ def etc1_downsample_cuda(data: torch.Tensor, nby: int, nbx: int,
     return out
 
 
-def etc1_hq_search_cuda(pixels: torch.Tensor, cands: torch.Tensor,
+def etc1_hq_search_cuda(pixels: torch.Tensor, cands: torch.Tensor | None,
                         flip: bool):
-    """Kernel version of :func:`etc1_hq_search_plain`."""
+    """Kernel version of :func:`etc1_hq_search_plain`: one launch, of the
+    search over ``cands``, or with ``cands`` None of the search that fits
+    its candidates in the kernel (counted as ``etc1_hq_fit_search``)."""
     _check(pixels, "etc1_hq_search", pixels.dim() == 2
            and pixels.shape[1] == 16, 4, torch.int32)
     n = pixels.shape[0]
-    _check(cands, "etc1_hq_search", cands.dim() == 3
-           and tuple(cands.shape[1:]) == (2, n), 4, torch.int32)
+    if cands is not None:
+        _check(cands, "etc1_hq_search", cands.dim() == 3
+               and tuple(cands.shape[1:]) == (2, n), 4, torch.int32)
     out = torch.empty((3, n), dtype=torch.int32, device=pixels.device)
-    if n:
+    if n and cands is None:
+        _launch("etc1_hq_fit_search", pixels.device,
+                "texcomp_etc1_hq_fit_search", pixels.data_ptr(), n, int(flip),
+                out.data_ptr())
+    elif n:
         _launch("etc1_hq_search", pixels.device, "texcomp_etc1_hq_search",
                 pixels.data_ptr(), n, cands.data_ptr(), cands.shape[0],
                 int(flip), out.data_ptr())
@@ -160,12 +175,34 @@ def etc1_hq_search(pixels: torch.Tensor, cands: torch.Tensor, flip: bool):
     return fn(pixels, cands, flip)
 
 
-def etc1_hq_encode_blocks(rgb: torch.Tensor) -> torch.Tensor:
-    """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks: candidates in
-    PyTorch, each flip's search by :func:`etc1_hq_search`."""
+def _hq_encode_blocks_plain(rgb: torch.Tensor) -> torch.Tensor:
+    """``codecs.etc.encode_etc1_hq_blocks``, each flip's search by
+    :func:`etc1_hq_search`."""
     return etc.encode_etc1_hq_blocks(
         rgb, search=lambda chunk, cands, flip: etc1_hq_search(
             pack_pixels(chunk), cands, flip))
+
+
+def _hq_encode_blocks_fused(rgb: torch.Tensor) -> torch.Tensor:
+    """The card's HQ encode: the pixels packed once, then per flip one
+    launch over every block that fits the candidates and searches them,
+    and the flip choice."""
+    if rgb.shape[0] == 0:
+        return torch.empty((0, 8), dtype=torch.uint8, device=rgb.device)
+    pixels = pack_pixels(rgb)
+    flips = []
+    for flip in (False, True):
+        with span("texcomp.etc1.hq.search"):
+            flips.append(etc1_hq_search_cuda(pixels, None, flip))
+    return etc.hq_pick_flip(*flips)
+
+
+def etc1_hq_encode_blocks(rgb: torch.Tensor) -> torch.Tensor:
+    """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks on the blocks'
+    device: on the card two launches, one a flip, that fit the candidates
+    and search them; on the CPU the plain twin, whose candidates are
+    PyTorch."""
+    return _pick(rgb, _hq_encode_blocks_plain, _hq_encode_blocks_fused)(rgb)
 
 
 def etc1_hq_encode_padded_image(image: torch.Tensor, grid_height: int,
