@@ -8,9 +8,9 @@ unit of the cell's traffic through the timed entry point) and once for
 the control, the reference put in the port's place with one step that
 would tempt a later change: for the fleet cells ETC1 encoded under the
 heuristic strategy (breaking the byte-identity the configuration states),
-for the HQ cell the HQ fit one precision lower (bfloat16 for float32).
-The control has to read above every limit the sound runs keep. The
-benchmark's own runs never run it.
+for a request cell its codec's HQ fit one precision lower (bfloat16 for
+float32). The control has to read above every limit the sound runs keep.
+The benchmark's own runs never run it.
 """
 
 from __future__ import annotations

@@ -11,11 +11,18 @@ A mix names its ``entry``:
     seed and moved on by one each pass, so that ``sample_every`` passes
     together hold every entry once; the pass's own objects are dropped,
     as a build farm drops what it has written out.
-  * ``compress``: one ``compress()`` request after another through an
-    ``EtcCompressor`` of the configuration's strategy and quality on RGB
-    images (the only codec a request cell has yet; another needs its own
-    reference too), cycling through a pool of ``pool`` images in a fixed
-    order. Every answer is kept.
+  * ``compress``: one ``compress()`` request after another through the
+    compressor of the configuration's one ``codec`` at ``quality="high"``:
+    ``DxtcCompressor`` for ``dxt1`` (Format.RGB) and ``dxt5``
+    (Format.RGBA), ``EtcCompressor`` of the configuration's strategy for
+    ``etc1`` (Format.RGB), ``PvrtcCompressor`` for ``pvrtc`` (2bpp,
+    Format.RGBA) and ``Pvrtc4bppCompressor`` for ``pvrtc4`` (Format.RGBA),
+    cycling through a pool of ``pool`` images in a fixed order, each with
+    the channels its codec encodes. The client refuses a codec or quality
+    for which the reference has no encoder and the control no lower
+    precision (a reference-quality request, whose reference has no float
+    fit), rather than compare it with the wrong bytes. Every answer is
+    kept.
 
 A unit of work is one pass or one request. The comparison runs after the
 window, on the reference's own encodes of the same inputs.
@@ -198,20 +205,34 @@ class Fleet:
         return readings, len(self.kept), failed, checked
 
 
+#: codec -> the port's compressor class, by name.
+COMPRESSORS = {"dxt1": "DxtcCompressor", "dxt5": "DxtcCompressor",
+               "etc1": "EtcCompressor", "pvrtc": "PvrtcCompressor",
+               "pvrtc4": "Pvrtc4bppCompressor"}
+
+
 class Requests:
-    """``compress()`` requests through one EtcCompressor."""
+    """``compress()`` requests through the configuration's compressor."""
 
     label = "texbench.api.compress"
 
     def __init__(self, config: dict, mix: dict, seed: int, device):
-        from texcomp_torch import EtcCompressor, Format
+        import texcomp_torch
 
-        if config["codec"] != "etc1":
-            raise ValueError(f"no request client for {config['codec']!r}")
+        codec, quality = config["codec"], config["quality"]
+        if quality != "high" or (codec, quality) not in ref.ENCODERS:
+            raise ValueError(f"no reference and control for {codec!r} at "
+                             f"quality {quality!r}")
+        _, fmt, channels = ref.CODECS[codec]
+        if config.get("channels", channels) != channels:
+            raise ValueError(f"{codec} encodes {channels} channels, not "
+                             f"{config['channels']}")
         self.config, self.mix, self.device = config, mix, torch.device(device)
-        self.format = Format.RGB
-        self.comp = EtcCompressor(config.get("strategy", 2),
-                                  quality=config["quality"], device=device)
+        self.format = texcomp_torch.Format(fmt)
+        cls = getattr(texcomp_torch, COMPRESSORS[codec])
+        self.comp = (cls(config.get("strategy", 2), quality=quality,
+                         device=device) if codec == "etc1"
+                     else cls(quality, device=device))
         self.images = inputs.request_pool(config, mix["pool"], seed, device)
         self.side = config["side"]
         self.mpix = self.side * self.side / 1e6

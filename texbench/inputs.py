@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from texbench.reference.images import CODECS
+
 
 def band_rows(h: int, n: int, b: int) -> tuple[int, int]:
     return b * h // n, (b + 1) * h // n
@@ -103,9 +105,10 @@ def fleet_assets(config: dict, seed: int, device):
 
 
 def request_pool(config: dict, pool: int, seed: int, device) -> list:
-    """The ``pool`` images a request stream cycles through, in order."""
+    """The ``pool`` images a request stream cycles through, in order, with
+    the channels the configuration's codec encodes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    side, ch = config["side"], config["channels"]
+    side, ch = config["side"], CODECS[config["codec"]][2]
     return [make_image(gen, config["kind"], side, side, ch, config["content"],
                        device) for _ in range(pool)]

@@ -1,4 +1,4 @@
-"""The port's kernels' least time (bytes over HBM) over their device time in the HQ path's traced span."""
+"""The port's kernels' least time (the larger of bytes over HBM and operations over the float32 peak, texbench/roofline.py) over their device time in the HQ path's traced span."""
 
 
 def read(reading):

@@ -3,7 +3,9 @@
 into low-res A/B images, per-pixel modulation against their bilinear wrap
 upscale, per-block modes, 8-byte records in Z-order. Words are int32
 tensors holding 32-bit patterns; each image falls back to its own pixel
-(0, 0) where an extreme axis is all zero."""
+(0, 0) where an extreme axis is all zero. The block size of the morph and
+the upscale is a parameter, and the records' unpacking and color decode
+are here, so that the 4bpp and HQ references share them."""
 
 from __future__ import annotations
 
@@ -51,13 +53,15 @@ def _color_diff(c0, c1):
     return (c0 - c1).abs().sum(-1, dtype=torch.int32)
 
 
-def _morph(image: torch.Tensor):
-    """GetExtremesFast + Morph (:255-329, :506-521): (H, W, 4) int32 ->
-    (A, B), each (nby, nbx, 4) int32."""
+def morph_extremes(image: torch.Tensor, block_h: int = BLOCK_H,
+                   block_w: int = BLOCK_W):
+    """GetExtremesFast (:255-329): (H, W, 4) int32 -> each block's extremes
+    (lo, hi) before the channel reduction, each (nby, nbx, 4) int32; 4bpp
+    takes 4x4 blocks."""
     h, w = image.shape[0], image.shape[1]
-    nby, nbx = h // BLOCK_H, w // BLOCK_W
-    blocks = image.reshape(nby, BLOCK_H, nbx, BLOCK_W, 4).transpose(1, 2)
-    blocks = blocks.reshape(nby, nbx, BLOCK_H * BLOCK_W, 4)
+    nby, nbx = h // block_h, w // block_w
+    blocks = image.reshape(nby, block_h, nbx, block_w, 4).transpose(1, 2)
+    blocks = blocks.reshape(nby, nbx, block_h * block_w, 4)
     r, g, b, a = blocks.unbind(-1)
     lightness = (77 * r + 150 * g + 28 * b) >> 8
 
@@ -79,7 +83,13 @@ def _morph(image: torch.Tensor):
     c0 = torch.gather(torch.stack(mins, dim=-2), -2, index).squeeze(-2)
     c1 = torch.gather(torch.stack(maxs, dim=-2), -2, index).squeeze(-2)
     swap = (c1.sum(-1) < c0.sum(-1))[..., None]
-    lo, hi = torch.where(swap, c1, c0), torch.where(swap, c0, c1)
+    return torch.where(swap, c1, c0), torch.where(swap, c0, c1)
+
+
+def _morph(image: torch.Tensor):
+    """GetExtremesFast + Morph (:255-329, :506-521): (H, W, 4) int32 ->
+    (A, B), each (nby, nbx, 4) int32."""
+    lo, hi = morph_extremes(image)
     return _channel_reduction(lo, False), _channel_reduction(hi, True)
 
 
@@ -94,10 +104,12 @@ def _upscale_axis(low: torch.Tensor, size: int, axis: int, block: int):
     return (block - fw) * prev + fw * nxt
 
 
-def _upscale(low: torch.Tensor, h: int, w: int):
-    """Bilinear wrap upscale (GetInterpolatedColor2BPP, :208-237)."""
-    tmp = _upscale_axis(low, w, axis=-2, block=BLOCK_W)
-    return _upscale_axis(tmp, h, axis=-3, block=BLOCK_H) // (BLOCK_W * BLOCK_H)
+def upscale(low: torch.Tensor, h: int, w: int, block_h: int = BLOCK_H,
+            block_w: int = BLOCK_W):
+    """Bilinear wrap upscale of (..., nby, nbx, C) to (..., h, w, C)
+    (GetInterpolatedColor2BPP, :208-237)."""
+    tmp = _upscale_axis(low, w, axis=-2, block=block_w)
+    return _upscale_axis(tmp, h, axis=-3, block=block_h) // (block_w * block_h)
 
 
 def _modulate(image, a_up, b_up):
@@ -184,12 +196,59 @@ def encode_pvrtc_2bpp(image: torch.Tensor) -> torch.Tensor:
     h, w = image.shape[0], image.shape[1]
     img = image.to(torch.int32)
     a, b = _morph(img)
-    mod = _modulate(img, _upscale(a, h, w), _upscale(b, h, w))
+    mod = _modulate(img, upscale(a, h, w), upscale(b, h, w))
     modes = _modes(mod)
     perm = torch.from_numpy(zorder_permutation(w // BLOCK_W, h // BLOCK_H)
                             ).to(image.device)
-    mod_words = _modulation_words(mod, modes).flatten()[perm]
-    color_words = _color_words(a, b, modes).flatten()[perm]
+    return pack_records(_modulation_words(mod, modes).flatten()[perm],
+                        _color_words(a, b, modes).flatten()[perm])
+
+
+def unpack_records(data: torch.Tensor, nbx: int, nby: int):
+    """(N, 8) uint8 Z-order records -> (modulation words, color words),
+    each (nby, nbx) int32 in row-major block order."""
+    d = data.to(torch.int32)
+    perm = torch.from_numpy(zorder_permutation(nbx, nby)).to(data.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=data.device)
+    return tuple((d[:, k] | (d[:, k + 1] << 8) | (d[:, k + 2] << 16)
+                  | (d[:, k + 3] << 24))[inv].reshape(nby, nbx)
+                 for k in (0, 4))
+
+
+def decode_color(word: torch.Tensor, is_b: bool):
+    """A or B of each color word, 8 bits a channel by bit replication (the
+    decode extension's model, pvrtc_compressor.h:20-55)."""
+    w = word.to(torch.int32)
+    bd = _bit_depth
+    if is_b:
+        opaque = (w >> 31) & 1
+        r_o = bd(((w >> 26) & 31) << 3, 5)
+        g_o = bd(((w >> 21) & 31) << 3, 5)
+        b_o = bd(((w >> 16) & 31) << 3, 5)
+        r_t = bd(((w >> 24) & 15) << 4, 4)
+        g_t = bd(((w >> 20) & 15) << 4, 4)
+        b_t = bd(((w >> 16) & 15) << 4, 4)
+        a_t = bd(((w >> 28) & 7) << 5, 3)
+    else:
+        opaque = (w >> 15) & 1
+        r_o = bd(((w >> 10) & 31) << 3, 5)
+        g_o = bd(((w >> 5) & 31) << 3, 5)
+        b_o = bd(((w >> 1) & 15) << 4, 4)
+        r_t = bd(((w >> 8) & 15) << 4, 4)
+        g_t = bd(((w >> 4) & 15) << 4, 4)
+        b_t = bd(((w >> 1) & 7) << 5, 3)
+        a_t = bd(((w >> 12) & 7) << 5, 3)
+    opq = opaque == 1
+    return torch.stack([torch.where(opq, r_o, r_t), torch.where(opq, g_o, g_t),
+                        torch.where(opq, b_o, b_t), torch.where(opq, 255, a_t)],
+                       dim=-1)
+
+
+def pack_records(mod_words: torch.Tensor,
+                 color_words: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 modulation and color words -> (N, 8) uint8 records, each
+    word little-endian (Append32, :59-65)."""
     parts = [(wd >> s) & 0xFF for wd in (mod_words, color_words)
              for s in (0, 8, 16, 24)]
     return torch.stack(parts, dim=-1).to(torch.uint8)

@@ -3,11 +3,14 @@ fault a cell can have, and passes the port: at small sizes on the CPU,
 driving the rest of a run (the look for a card skipped), with the timed
 path broken underneath."""
 
+import json
+
 import pytest
 import torch
 
 from texbench import control, run
-from texbench.manifest import Manifest
+from texbench.manifest import HERE, Manifest
+from texcomp_torch.codecs import dxt_hq, pvrtc_hq
 from texcomp_torch.dist import pipeline
 from texcomp_torch.ops import etc_cuda
 
@@ -108,5 +111,73 @@ def _half_blocks(monkeypatch):
 def test_each_fault_fails(cell, fault, monkeypatch):
     fault(monkeypatch)
     result = run_small(cell)
+    assert not result["correct"]
+    assert result["checks"]["wrong_payloads"]["value"] > 0
+
+
+CONTENT = json.loads((HERE / "configs" / "fleet5.json").read_text())["content"]
+#: The HQ encode each request of a codec runs (the port's, where its
+#: answer is produced), besides HQ ETC1's.
+HQ_ENCODE = {"dxt1": (dxt_hq, "encode_dxt1_hq_image", 3),
+             "dxt5": (dxt_hq, "encode_dxt5_hq_image", 4),
+             "pvrtc": (pvrtc_hq, "encode_pvrtc_2bpp_hq", 4),
+             "pvrtc4": (pvrtc_hq, "encode_pvrtc_4bpp_hq", 4)}
+
+
+def hq_requests(codec: str):
+    """(config, mix) of HQ requests of ``codec`` at a test's size."""
+    channels = HQ_ENCODE[codec][2]
+    return ({"codec": codec, "channels": channels, "quality": "high",
+             "side": 32, "kind": "banded", "content": CONTENT},
+            {"entry": "compress", "pool": 2, "warmup": 1, "trace_units": 1,
+             "metrics": {"hq_mpix_s": "rate"}})
+
+
+def run_requests(codec: str, seed: int = 2**31 + 7):
+    config, mix = hq_requests(codec)
+    result, _ = run.run_cell(MAN, {"name": f"hq.{codec}", "chips": 1}, seed,
+                             0.5, False, "cpu", config=config, mix=mix)
+    return result
+
+
+@pytest.mark.parametrize("codec", sorted(HQ_ENCODE))
+def test_hq_requests_pass_and_their_control_fails(codec):
+    config, mix = hq_requests(codec)
+    got = control.readings(None, 11, "cpu", config=config, mix=mix)
+    assert all(v == 0 for v in got["program"].values())
+    assert got["control"]["wrong_payloads"] > 0
+    assert run_requests(codec)["correct"]
+
+
+def _altered_answer(codec, monkeypatch):
+    mod, name, _ = HQ_ENCODE[codec]
+    encode = getattr(mod, name)
+
+    def altered(*args, **kwargs):
+        out = encode(*args, **kwargs).clone()
+        out[-1, -1] ^= 1
+        return out
+
+    monkeypatch.setattr(mod, name, altered)
+
+
+def _half_answer(codec, monkeypatch):
+    mod, name, _ = HQ_ENCODE[codec]
+    encode = getattr(mod, name)
+
+    def half(*args, **kwargs):
+        out = encode(*args, **kwargs)
+        n = out.shape[0]
+        return torch.cat([out[: n // 2], out[: n // 2]])[:n]
+
+    monkeypatch.setattr(mod, name, half)
+
+
+@pytest.mark.parametrize("codec", sorted(HQ_ENCODE))
+@pytest.mark.parametrize("fault", [_altered_answer, _half_answer],
+                         ids=lambda f: f.__name__)
+def test_each_fault_of_a_hq_request_fails(codec, fault, monkeypatch):
+    fault(codec, monkeypatch)
+    result = run_requests(codec)
     assert not result["correct"]
     assert result["checks"]["wrong_payloads"]["value"] > 0

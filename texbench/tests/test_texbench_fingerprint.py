@@ -65,7 +65,11 @@ def _solid_blocks(img: np.ndarray) -> int:
 def fingerprint(cell: str, seed: int):
     """(shape sequence, per-key work) of one cell's inputs for one seed."""
     c = cell_named(cell)
-    config, mix = MAN.config(c["config"]), MAN.traffic(c["traffic"])
+    return inputs_fingerprint(MAN.config(c["config"]),
+                              MAN.traffic(c["traffic"]), seed)
+
+
+def inputs_fingerprint(config: dict, mix: dict, seed: int):
     content = config["content"]
     if mix["entry"] == "compress":
         pool = inputs.request_pool(config, mix["pool"], seed, "cpu")
@@ -102,6 +106,20 @@ def fingerprint(cell: str, seed: int):
 @pytest.mark.parametrize("cell", NAMES)
 def test_every_seed_does_the_same_work(cell, seed):
     assert fingerprint(cell, seed) == fingerprint(cell, 0)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("codec,channels", [("dxt1", 3), ("dxt5", 4),
+                                            ("pvrtc", 4), ("pvrtc4", 4)])
+def test_every_seed_of_each_codec_does_the_same_work(codec, channels, seed):
+    """A request configuration of any codec: a pool of the channels that
+    codec encodes, the same work for every seed."""
+    config = {**MAN.config("etc1k"), "side": 64, "codec": codec}
+    del config["channels"]
+    mix = MAN.traffic("api_hq")
+    got = inputs_fingerprint(config, mix, seed)
+    assert got == inputs_fingerprint(config, mix, 0)
+    assert got[0] == ((64, 64, channels),) * mix["pool"]
 
 
 def test_seeds_change_the_pixels():

@@ -48,13 +48,13 @@ def test_the_reduction():
     assert r.device_ops()[0][1] == pytest.approx(0.010)
 
 
+#: A reader's reading, by its metric's name less the cell suffix, so that
+#: a cell's own reader of a kind this table has is checked as it is added.
 EXPECTED = {
-    "pipeline.host_pct.fleet": 80.0,
-    "hq.launches_per_mpix.hq": 1.5,
-    "kernels_roofline.fleet": 20.0,
-    "kernels_roofline.hq": 20.0,
-    "device.idle_pct.fleet": 78.0,
-    "device.idle_pct.hq": 78.0,
+    "pipeline.host_pct": 80.0,
+    "hq.launches_per_mpix": 1.5,
+    "kernels_roofline": 20.0,
+    "device.idle_pct": 78.0,
 }
 
 
@@ -65,7 +65,8 @@ READERS = sorted(p.stem for p in (HERE / "metrics").glob("*.py"))
 
 @pytest.mark.parametrize("metric", READERS)
 def test_each_reader(metric):
-    assert reader(metric)(reading()) == pytest.approx(EXPECTED[metric])
+    want = EXPECTED[metric.rsplit(".", 1)[0]]
+    assert reader(metric)(reading()) == pytest.approx(want)
 
 
 def test_readers_report_nothing_where_nothing_was_read():

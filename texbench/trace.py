@@ -51,7 +51,9 @@ class Reading:
         return 100.0 * (1.0 - self.busy_s / self.span_s)
 
     def roofline_pct(self) -> float | None:
-        """The port's kernels' least time over their device time, when the
+        """The port's kernels' least time (each recorded call's larger of
+        bytes over HBM and operations over the float32 peak,
+        ``roofline.call_least_s``) over their device time, when the
         recorded wrapper calls account for exactly the port's kernels the
         profiler saw."""
         port = self.port_kernels()
