@@ -16,6 +16,10 @@ HQ_NAMES = {"texcomp.api.compress", "texcomp.api.upload",
             "texcomp.etc1.hq.candidates", "texcomp.etc1.hq.search"}
 API_NAMES = {"texcomp.api.compress", "texcomp.api.upload",
              "texcomp.api.download"}
+PVRTC_HQ_STEPS = ["texcomp.pvrtc.hq.reference", "texcomp.pvrtc.hq.fit",
+                  "texcomp.pvrtc.hq.refine", "texcomp.pvrtc.hq.assign",
+                  "texcomp.pvrtc.hq.choose"]
+PVRTC_HQ_NAMES = API_NAMES | {"texcomp.pvrtc.hq.encode", *PVRTC_HQ_STEPS}
 
 
 def _image(h, w, c, seed=0):
@@ -43,6 +47,17 @@ def _dxtc(img, fmt):
     out = texcomp_torch.CompressedImage()
     h, w = img.shape[:2]
     assert comp.compress(fmt, h, w, 0, img.tobytes(), out)
+    return out
+
+
+def _pvrtc(img, bits, quality):
+    cls = (texcomp_torch.PvrtcCompressor if bits == 2
+           else texcomp_torch.Pvrtc4bppCompressor)
+    comp = cls(quality, device="cpu")
+    out = texcomp_torch.CompressedImage()
+    h, w = img.shape[:2]
+    assert comp.compress(texcomp_torch.Format.RGBA, h, w, 0, img.tobytes(),
+                         out)
     return out
 
 
@@ -94,7 +109,42 @@ def test_dxtc_request_records_the_api_spans_only(fmt):
     assert all(_within(s, request) for s in spans)
 
 
-@pytest.mark.parametrize("name", sorted(HQ_NAMES))
+@pytest.mark.parametrize("bits,side", [(4, 16), (2, 32)])
+def test_hq_pvrtc_request_records_one_span_a_name(bits, side):
+    """4bpp: the API's three spans and five of the fit's, 8 in all; 2bpp
+    adds the packing-aware refine rounds, 9."""
+    _, spans = _recorded(lambda: _pvrtc(_image(side, side, 4), bits, "high"))
+    steps = [n for n in PVRTC_HQ_STEPS
+             if bits == 2 or n != "texcomp.pvrtc.hq.refine"]
+    names = [n for n, _, _ in spans]
+    assert sorted(names) == sorted(API_NAMES | {"texcomp.pvrtc.hq.encode",
+                                                *steps})
+    assert len(spans) == (8 if bits == 4 else 9)
+    (request,) = [s for s in spans if s[0] == "texcomp.api.compress"]
+    assert all(_within(s, request) for s in spans)
+    (encode,) = [s for s in spans if s[0] == "texcomp.pvrtc.hq.encode"]
+    # The fit's steps in order inside the encode, between the upload and
+    # the download.
+    assert [n for n in names if n in steps] == steps
+    assert all(_within(s, encode) for s in spans if s[0] in steps)
+    assert names[:2] == ["texcomp.api.compress", "texcomp.api.upload"]
+    assert names[-1] == "texcomp.api.download"
+    (upload,) = [s for s in spans if s[0] == "texcomp.api.upload"]
+    (download,) = [s for s in spans if s[0] == "texcomp.api.download"]
+    assert upload[2] <= encode[1] and encode[2] <= download[1]
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_reference_pvrtc_request_records_the_api_spans_only(bits):
+    _, spans = _recorded(lambda: _pvrtc(_image(16, 16, 4), bits,
+                                        "reference"))
+    assert [n for n, _, _ in spans] == ["texcomp.api.compress",
+                                        "texcomp.api.upload",
+                                        "texcomp.api.download"]
+    assert all(_within(s, spans[0]) for s in spans)
+
+
+@pytest.mark.parametrize("name", sorted(HQ_NAMES | PVRTC_HQ_NAMES))
 def test_without_a_profiler_a_span_is_the_shared_no_op(name, monkeypatch):
     def no_call(*args, **kwargs):
         raise AssertionError("record_function called with no profiler")
@@ -122,11 +172,15 @@ def test_no_profiler_records_no_span():
     assert spans == []
 
 
-@pytest.mark.parametrize("codec", ["etc1_hq", "dxt1", "dxt5"])
+@pytest.mark.parametrize("codec", ["etc1_hq", "dxt1", "dxt5", "pvrtc_hq",
+                                   "pvrtc4_hq"])
 def test_payload_bytes_do_not_depend_on_the_profiler(codec):
     def run():
         if codec == "etc1_hq":
             return _etc_hq(_image(8, 12, 3, seed=1), "compress")
+        if codec.startswith("pvrtc"):
+            return _pvrtc(_image(32, 32, 4, seed=1),
+                          2 if codec == "pvrtc_hq" else 4, "high")
         fmt = texcomp_torch.Format.RGB if codec == "dxt1" else \
             texcomp_torch.Format.RGBA
         return _dxtc(_image(8, 12, 3 if codec == "dxt1" else 4, seed=1), fmt)

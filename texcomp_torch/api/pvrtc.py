@@ -26,6 +26,7 @@ from texcomp_torch.api.compressor import Compressor
 from texcomp_torch.api.container import CompressedImage, Format, Metadata
 from texcomp_torch.codecs import pvrtc, pvrtc4, pvrtc_hq
 from texcomp_torch.ops import pvrtc_cuda
+from texcomp_torch.utils.profiling import span
 
 
 def _is_power_of_two(x: int) -> bool:
@@ -82,34 +83,42 @@ class _PvrtcBase(Compressor):
                  image) -> bool:
         """pvrtc_compressor.cc:636-667: requires square power-of-two, no row
         padding."""
-        if buffer is None or image is None or height == 0 or width == 0:
-            return False
-        if (not _is_power_of_two(width) or not _is_power_of_two(height)
-                or width != height):
-            return False
-        if padding_bytes_per_row != 0:
-            return False
-        if width % self.min_side_w != 0 or height % self.min_side_h != 0:
-            return False
-
-        data_size = self.compute_compressed_data_size(fmt, height, width)
-        metadata = Metadata(
-            format=fmt, compressor_name=self.name,
-            uncompressed_height=height, uncompressed_width=width,
-            compressed_height=height, compressed_width=width,
-            padding_bytes_per_row=0,
-        )
-        if image.owns_data():
-            image.create_owned_data(metadata, data_size)
-        else:
-            if image.get_data_size() != data_size:
+        with span("texcomp.api.compress"):
+            if buffer is None or image is None or height == 0 or width == 0:
                 return False
-            image.set_metadata(metadata)
+            if (not _is_power_of_two(width) or not _is_power_of_two(height)
+                    or width != height):
+                return False
+            if padding_bytes_per_row != 0:
+                return False
+            if width % self.min_side_w != 0 or height % self.min_side_h != 0:
+                return False
 
-        img = h4.buffer_to_image_array(buffer, height, width, 4, 0)
-        out = self._encode(h4._to_device(img, self._device))
-        image.get_mutable_data()[:] = out.cpu().numpy().reshape(-1)
-        return True
+            data_size = self.compute_compressed_data_size(fmt, height, width)
+            metadata = Metadata(
+                format=fmt, compressor_name=self.name,
+                uncompressed_height=height, uncompressed_width=width,
+                compressed_height=height, compressed_width=width,
+                padding_bytes_per_row=0,
+            )
+            if image.owns_data():
+                image.create_owned_data(metadata, data_size)
+            else:
+                if image.get_data_size() != data_size:
+                    return False
+                image.set_metadata(metadata)
+
+            with span("texcomp.api.upload"):
+                img = h4._to_device(
+                    h4.buffer_to_image_array(buffer, height, width, 4, 0),
+                    self._device)
+            out = self._encode(img)
+            # The one place the host waits for the card, as in
+            # helper4x4.compress.
+            with span("texcomp.api.download"):
+                out = out.cpu()
+            image.get_mutable_data()[:] = out.numpy().reshape(-1)
+            return True
 
     def _decode_into(self, decode, image: CompressedImage,
                      decompressed_buffer) -> bool:

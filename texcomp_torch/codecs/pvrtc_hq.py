@@ -50,6 +50,7 @@ from texcomp_torch.codecs import pvrtc as pv
 from texcomp_torch.codecs import pvrtc4
 from texcomp_torch.codecs.etc import _argmin_first
 from texcomp_torch.ops import pvrtc_cuda
+from texcomp_torch.utils.profiling import span
 
 # Iteration counts as texcomp tuned them (4 outer alternations, 2
 # packing-aware refits, 4 CG steps a refit).
@@ -303,27 +304,30 @@ def _encode_hq(image: torch.Tensor) -> torch.Tensor:
     img_i = image.to(torch.int32)
     img_f = image.to(torch.float32)
 
-    lo, hi = pv._morph_extremes(img_i)
-    ab = _shrunk_seed(lo, hi)
     upscale_f = _make_upscale_f(h, w, pv.BLOCK_H, pv.BLOCK_W)
     upscale_t = _make_upscale_t(pv.BLOCK_H, pv.BLOCK_W)
-    for _ in range(_OUTER_ITERS):
-        ab = _outer_step(img_f, ab, upscale_f, upscale_t)
+    with span("texcomp.pvrtc.hq.fit"):
+        lo, hi = pv._morph_extremes(img_i)
+        ab = _shrunk_seed(lo, hi)
+        for _ in range(_OUTER_ITERS):
+            ab = _outer_step(img_f, ab, upscale_f, upscale_t)
 
     # Packing-aware rounds: refit A/B against the modulation the decoder
     # will reconstruct under the chosen packing modes.
-    for _ in range(_REFINE_CYCLES):
+    with span("texcomp.pvrtc.hq.refine"):
+        for _ in range(_REFINE_CYCLES):
+            a_q, b_q = _quantize_ab(ab, img_i)
+            mod, modes = _assign(img_i, a_q, b_q, h, w)
+            t = _t_of(_recon_mod(mod, modes, h, w))
+            ab = _solve_ab(img_f, t, ab, upscale_f, upscale_t)
+
+    with span("texcomp.pvrtc.hq.assign"):
         a_q, b_q = _quantize_ab(ab, img_i)
         mod, modes = _assign(img_i, a_q, b_q, h, w)
-        t = _t_of(_recon_mod(mod, modes, h, w))
-        ab = _solve_ab(img_f, t, ab, upscale_f, upscale_t)
-
-    a_q, b_q = _quantize_ab(ab, img_i)
-    mod, modes = _assign(img_i, a_q, b_q, h, w)
-    mod_words = pv._block_modulation_data(mod, modes).reshape(-1)
-    color_words = pv._encode_colors(a_q, b_q, modes).reshape(-1)
-    perm = pv._perm(nbx, nby, image.device)
-    return pv._pack_records(mod_words[perm], color_words[perm])
+        mod_words = pv._block_modulation_data(mod, modes).reshape(-1)
+        color_words = pv._encode_colors(a_q, b_q, modes).reshape(-1)
+        perm = pv._perm(nbx, nby, image.device)
+        return pv._pack_records(mod_words[perm], color_words[perm])
 
 
 def _sse(decoded: torch.Tensor, img_i: torch.Tensor) -> torch.Tensor:
@@ -332,17 +336,26 @@ def _sse(decoded: torch.Tensor, img_i: torch.Tensor) -> torch.Tensor:
     return (d * d).sum(dtype=torch.int64)
 
 
+def _best_of(image: torch.Tensor, hq: torch.Tensor, ref: torch.Tensor,
+             decode) -> torch.Tensor:
+    """Whichever of the ``hq`` and ``ref`` payloads ``decode`` (records, h,
+    w) -> image brings closer to ``image``, HQ on a tie."""
+    with span("texcomp.pvrtc.hq.choose"):
+        h, w = image.shape[0], image.shape[1]
+        img_i = image.to(torch.int32)
+        sse_hq = _sse(decode(hq, h, w), img_i)
+        sse_ref = _sse(decode(ref, h, w), img_i)
+        return torch.where(sse_hq <= sse_ref, hq, ref)
+
+
 def encode_pvrtc_2bpp_hq(image: torch.Tensor) -> torch.Tensor:
     """HQ PVRTC 2BPP encode of a (H, W, 4) uint8 square power-of-two image
     (side >= 8) -> (H*W/32, 8) uint8 Z-order records: whichever of {HQ,
     reference} decodes closer to the source, HQ on a tie."""
-    h, w = image.shape[0], image.shape[1]
-    ref = pvrtc_cuda.pvrtc_encode_image(image)
-    hq = _encode_hq(image)
-    img_i = image.to(torch.int32)
-    sse_hq = _sse(pv.decode_pvrtc_2bpp(hq, h, w), img_i)
-    sse_ref = _sse(pv.decode_pvrtc_2bpp(ref, h, w), img_i)
-    return torch.where(sse_hq <= sse_ref, hq, ref)
+    with span("texcomp.pvrtc.hq.encode"):
+        with span("texcomp.pvrtc.hq.reference"):
+            ref = pvrtc_cuda.pvrtc_encode_image(image)
+        return _best_of(image, _encode_hq(image), ref, pv.decode_pvrtc_2bpp)
 
 
 def _encode_hq4(image: torch.Tensor) -> torch.Tensor:
@@ -354,36 +367,37 @@ def _encode_hq4(image: torch.Tensor) -> torch.Tensor:
     img_i = image.to(torch.int32)
     img_f = image.to(torch.float32)
 
-    # 4bpp keeps the raw-extremes seed, as texcomp does.
-    lo, hi = pv._morph_extremes(img_i, pvrtc4.BLOCK, pvrtc4.BLOCK)
-    ab = torch.stack([lo, hi]).to(torch.float32)
     upscale_f = _make_upscale_f(h, w, pvrtc4.BLOCK, pvrtc4.BLOCK)
     upscale_t = _make_upscale_t(pvrtc4.BLOCK, pvrtc4.BLOCK)
-    for _ in range(_OUTER_ITERS):
-        ab = _outer_step(img_f, ab, upscale_f, upscale_t)
+    with span("texcomp.pvrtc.hq.fit"):
+        # 4bpp keeps the raw-extremes seed, as texcomp does.
+        lo, hi = pv._morph_extremes(img_i, pvrtc4.BLOCK, pvrtc4.BLOCK)
+        ab = torch.stack([lo, hi]).to(torch.float32)
+        for _ in range(_OUTER_ITERS):
+            ab = _outer_step(img_f, ab, upscale_f, upscale_t)
 
-    a_q, b_q = _quantize_ab(ab, img_i)
-    up = pv._interpolate_upscaled(torch.stack([a_q, b_q]), h, w,
-                                  pvrtc4.BLOCK, pvrtc4.BLOCK)
-    mod = _argmin_first(_mod_errors_int(img_i, up[0], up[1]), -1)
+    with span("texcomp.pvrtc.hq.assign"):
+        a_q, b_q = _quantize_ab(ab, img_i)
+        up = pv._interpolate_upscaled(torch.stack([a_q, b_q]), h, w,
+                                      pvrtc4.BLOCK, pvrtc4.BLOCK)
+        mod = _argmin_first(_mod_errors_int(img_i, up[0], up[1]), -1)
 
-    # 2 bits a pixel, pixel (y, x) at bit 2 * (y * 4 + x); the color word's
-    # mode flag 0, as pvrtc4 writes them.
-    blocks = mod.to(torch.int32).reshape(nb, 4, nb, 4).transpose(1, 2)
-    mod_words = pv._word_sum(blocks << pvrtc4._shifts(image.device)).reshape(-1)
-    modes0 = torch.zeros((nb, nb), dtype=torch.int32, device=image.device)
-    color_words = pv._encode_colors(a_q, b_q, modes0).reshape(-1)
-    perm = pv._perm(nb, nb, image.device)
-    return pv._pack_records(mod_words[perm], color_words[perm])
+        # 2 bits a pixel, pixel (y, x) at bit 2 * (y * 4 + x); the color
+        # word's mode flag 0, as pvrtc4 writes them.
+        blocks = mod.to(torch.int32).reshape(nb, 4, nb, 4).transpose(1, 2)
+        mod_words = pv._word_sum(
+            blocks << pvrtc4._shifts(image.device)).reshape(-1)
+        modes0 = torch.zeros((nb, nb), dtype=torch.int32, device=image.device)
+        color_words = pv._encode_colors(a_q, b_q, modes0).reshape(-1)
+        perm = pv._perm(nb, nb, image.device)
+        return pv._pack_records(mod_words[perm], color_words[perm])
 
 
 def encode_pvrtc_4bpp_hq(image: torch.Tensor) -> torch.Tensor:
     """HQ PVRTC 4BPP encode, never worse than ``pvrtc4.encode_pvrtc_4bpp``
     by decoded squared error (HQ on a tie)."""
-    h, w = image.shape[0], image.shape[1]
-    ref = pvrtc4.encode_pvrtc_4bpp(image)
-    hq = _encode_hq4(image)
-    img_i = image.to(torch.int32)
-    sse_hq = _sse(pvrtc4.decode_pvrtc_4bpp(hq, h, w), img_i)
-    sse_ref = _sse(pvrtc4.decode_pvrtc_4bpp(ref, h, w), img_i)
-    return torch.where(sse_hq <= sse_ref, hq, ref)
+    with span("texcomp.pvrtc.hq.encode"):
+        with span("texcomp.pvrtc.hq.reference"):
+            ref = pvrtc4.encode_pvrtc_4bpp(image)
+        return _best_of(image, _encode_hq4(image), ref,
+                        pvrtc4.decode_pvrtc_4bpp)
