@@ -2307,15 +2307,17 @@ def photo_image(seed: int, side: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def pvrtc_hq_photo(gpu: str) -> None:
+def pvrtc_hq_photo(gpu: str) -> np.ndarray:
     """Both HQ PVRTC encoders on a smooth 1024^2 image (photo_image), on
-    the card and on the CPU: bytes equal, and the arm and PSNR of each."""
+    the card and on the CPU: bytes equal, and the arm and PSNR of each.
+    Returns the CPU's 4bpp payload."""
     image = photo_image(5, HQ_SIZE)
-    parts = []
+    parts, on_cpu = [], {}
     for bits, encode in ((2, pvrtc_hq.encode_pvrtc_2bpp_hq),
                          (4, pvrtc_hq.encode_pvrtc_4bpp_hq)):
         got = encode(torch.from_numpy(image).cuda()).cpu().numpy().reshape(-1)
         want = encode(torch.from_numpy(image)).numpy().reshape(-1)
+        on_cpu[bits] = want
         if not np.array_equal(got, want):
             fail(f"PVRTC {bits}bpp HQ of the smooth image: cuda differs from "
                  f"the cpu in {(got != want).reshape(-1, 8).any(-1).sum()} "
@@ -2324,6 +2326,31 @@ def pvrtc_hq_photo(gpu: str) -> None:
     print(f"[main] PVRTC HQ of a smooth {HQ_SIZE}x{HQ_SIZE} image on {gpu}: "
           f"2bpp and 4bpp payloads equal to the cpu's; " + "; ".join(parts),
           flush=True)
+    return on_cpu[4]
+
+
+def pvrtc_hq_replay(image: np.ndarray, payload: np.ndarray,
+                    photo_payload: np.ndarray, gpu: str) -> None:
+    """The 4bpp HQ encode's captured graph on new pixels: the smooth image,
+    then ``image``, then the smooth image again, each replayed (no eager
+    call, no capture) and held until all three are done, equal to its CPU
+    payload (``payload`` and ``photo_payload``)."""
+    photo = torch.from_numpy(photo_image(5, HQ_SIZE)).cuda()
+    img = torch.from_numpy(image).cuda()
+    before = dict(pvrtc_hq.GRAPH_STATS)
+    held = [pvrtc_hq.encode_pvrtc_4bpp_hq(x) for x in (photo, img, photo)]
+    stats = {k: v - before[k] for k, v in pvrtc_hq.GRAPH_STATS.items()}
+    if stats != {"eager": 0, "captures": 0, "replays": 3}:
+        fail(f"PVRTC 4bpp HQ at {HQ_SIZE}^2 did not replay its graph: {stats}")
+    for got, want, what in zip(held, (photo_payload, payload, photo_payload),
+                               ("smooth", "banded", "smooth again")):
+        if not np.array_equal(got.cpu().numpy().reshape(-1), want):
+            fail(f"PVRTC 4bpp HQ replay of the {what} image differs from the "
+                 "cpu's payload")
+    print(f"[main] encode_pvrtc_4bpp_hq {HQ_SIZE}x{HQ_SIZE} on {gpu}: three "
+          f"replays of its CUDA graph (smooth, banded, smooth), held together, "
+          f"each equal to the cpu's payload; GRAPH_STATS "
+          f"{pvrtc_hq.GRAPH_STATS}", flush=True)
 
 
 def pvrtc_hq_no_sync(image: np.ndarray, payloads: dict, gpu: str) -> None:
@@ -2331,8 +2358,14 @@ def pvrtc_hq_no_sync(image: np.ndarray, payloads: dict, gpu: str) -> None:
     torch.cuda.set_sync_debug_mode("error"): an op that waits on the device
     (a host copy, ``.item()``, a data-dependent size) raises, and nothing
     here catches it. After a warm call (which caches the per-device
-    tables), a path that passes could be captured by a CUDA graph."""
+    tables), a path that passes can be captured by a CUDA graph: the 4bpp
+    encode's op-by-op body is checked, and its entry point, which replays
+    the graph that ``main_hq``'s calls captured."""
     img = torch.from_numpy(image).cuda()
+    if pvrtc_hq._GRAPHS.entries.get(
+            (image.shape[0], image.shape[1], img.device.index)) is None:
+        fail(f"PVRTC 4bpp HQ at {image.shape[0]}^2: no captured graph after "
+             f"main_hq's calls ({pvrtc_hq.GRAPH_STATS})")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2344,17 +2377,22 @@ def pvrtc_hq_no_sync(image: np.ndarray, payloads: dict, gpu: str) -> None:
             caught = True
         if not caught:
             fail("set_sync_debug_mode(\"error\") let a host copy through")
-        out = {2: pvrtc_hq.encode_pvrtc_2bpp_hq(img),
-               4: pvrtc_hq.encode_pvrtc_4bpp_hq(img)}
+        before = pvrtc_hq.GRAPH_STATS["replays"]
+        out = {"2bpp": pvrtc_hq.encode_pvrtc_2bpp_hq(img),
+               "4bpp op by op": pvrtc_hq._encode_pvrtc_4bpp_hq_eager(img),
+               "4bpp replayed": pvrtc_hq.encode_pvrtc_4bpp_hq(img)}
+        replayed = pvrtc_hq.GRAPH_STATS["replays"] - before
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for bits, payload in out.items():
-        if not np.array_equal(payload.cpu().numpy().reshape(-1),
-                              payloads[bits].get_data()):
-            fail(f"PVRTC {bits}bpp HQ under sync debug mode differs from "
+    if replayed != 1:
+        fail(f"PVRTC 4bpp HQ under sync debug mode: {replayed} replays, not 1")
+    for what, payload in out.items():
+        want = payloads[2 if what == "2bpp" else 4].get_data()
+        if not np.array_equal(payload.cpu().numpy().reshape(-1), want):
+            fail(f"PVRTC {what} HQ under sync debug mode differs from "
                  "its compress()")
-    print(f"[main] encode_pvrtc_2bpp_hq and encode_pvrtc_4bpp_hq "
-          f"{image.shape[0]}x{image.shape[1]} on {gpu} under "
+    print(f"[main] encode_pvrtc_2bpp_hq, the 4bpp HQ encode op by op and its "
+          f"graph's replay {image.shape[0]}x{image.shape[1]} on {gpu} under "
           f'set_sync_debug_mode("error") (which raised on a host-to-device '
           f"copy): no synchronising op; payloads equal to compress()'s",
           flush=True)
@@ -2971,7 +3009,9 @@ def phase_main_path(images: dict, pv: dict, hq_images: dict, gpu: str) -> dict:
         fail(f"main path did not launch {missing}: {launches.total}")
     print(f"[main] launches during the main path: {launches.total}", flush=True)
     pvrtc_hq_no_sync(hq_images[Format.RGBA], pvrtc_hq_payloads, gpu)
-    pvrtc_hq_photo(gpu)
+    photo_payload = pvrtc_hq_photo(gpu)
+    pvrtc_hq_replay(hq_images[Format.RGBA],
+                    pvrtc_hq_payloads[4].get_data(), photo_payload, gpu)
     pvrtc_stage_split(pvrtc_img, gpu)
     hq_device_split(hq_images, gpu)
     return launches.total

@@ -39,10 +39,17 @@ close to texcomp's decoded error.
 
 The 2bpp reference arm is ``ops.pvrtc_cuda.pvrtc_encode_image``: the
 three PVRTC kernels on a CUDA tensor, their plain twins on a CPU one. The
-4bpp path runs no kernel, as in texcomp.
+4bpp path runs no kernel of the port, as in texcomp: some 3,300 small
+PyTorch kernels at 1024², which the host would dispatch one by one. On a
+card it is captured as a CUDA graph per image size and replayed. No step
+of it waits on the device and its shapes depend only on the image size,
+so a replay on new pixels runs exactly the captured kernels.
 """
 
 from __future__ import annotations
+
+import threading
+from collections import OrderedDict
 
 import torch
 
@@ -393,11 +400,106 @@ def _encode_hq4(image: torch.Tensor) -> torch.Tensor:
         return pv._pack_records(mod_words[perm], color_words[perm])
 
 
+def _encode_pvrtc_4bpp_hq_eager(image: torch.Tensor) -> torch.Tensor:
+    """The 4bpp HQ encode op by op: the reference arm, the fit and the
+    best-of. What a CUDA graph of :func:`encode_pvrtc_4bpp_hq` captures."""
+    with span("texcomp.pvrtc.hq.reference"):
+        ref = pvrtc4.encode_pvrtc_4bpp(image)
+    return _best_of(image, _encode_hq4(image), ref, pvrtc4.decode_pvrtc_4bpp)
+
+
+#: Captured 4bpp HQ encodes kept at once, one an (H, W, CUDA device); the
+#: least recently used goes first. Each holds about one eager request's
+#: peak of device memory (361 MB at 1024²).
+_GRAPH_CAP = 4
+
+#: How often :func:`encode_pvrtc_4bpp_hq` ran op by op (a CPU tensor, or a
+#: key's first call on a card), captured a CUDA graph (a key's second call)
+#: and replayed one (every later call).
+GRAPH_STATS = {"eager": 0, "captures": 0, "replays": 0}
+
+
+class _Graph:
+    """The 4bpp HQ encode of one (H, W, CUDA device) captured as a CUDA
+    graph: the same ops as :func:`_encode_pvrtc_4bpp_hq_eager` on a static
+    input buffer, replayed with no host dispatch. Capture it on the image's
+    device, after one eager call of the key has cached its tables."""
+
+    def __init__(self, image: torch.Tensor):
+        nb = image.shape[0] // pvrtc4.BLOCK
+        # The capture reads these cached tables; a miss inside it would
+        # copy from the host. Make sure they are cached.
+        pv._perm(nb, nb, image.device)
+        pv._inverse_perm(nb, nb, image.device)
+        self.static_in = torch.empty_like(image)
+        self.static_in.copy_(image)
+        self.graph = torch.cuda.CUDAGraph()
+        # Thread-local: another thread's CUDA work does not break the
+        # capture, nor the capture that work.
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.static_out = _encode_pvrtc_4bpp_hq_eager(self.static_in)
+        # Recorded after each replay's copy-out; a replay on another stream
+        # waits on it before it overwrites the input.
+        self.done = torch.cuda.Event()
+
+    def run(self, image: torch.Tensor) -> torch.Tensor:
+        stream = torch.cuda.current_stream()
+        stream.wait_event(self.done)
+        self.static_in.copy_(image)
+        self.graph.replay()
+        # A fresh tensor: the next replay overwrites static_out, and a
+        # caller may hold several results (``dist.pipeline`` stacks them).
+        out = self.static_out.clone()
+        self.done.record(stream)
+        return out
+
+
+class _GraphCache:
+    """:class:`_Graph` by (H, W, CUDA device index), at most ``cap`` keys,
+    the least recently used evicted first with its graph's memory pool. A
+    key's first call runs eagerly, its second captures, every later one
+    replays. One lock: no two threads capture or replay a key at once."""
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self.entries: OrderedDict = OrderedDict()  # key -> _Graph, or None
+        self.lock = threading.Lock()
+
+    def encode(self, image: torch.Tensor) -> torch.Tensor:
+        key = (image.shape[0], image.shape[1], image.device.index)
+        with self.lock:
+            if key in self.entries:
+                self.entries.move_to_end(key)
+                with torch.cuda.device(image.device):
+                    graph = self.entries[key]
+                    if graph is None:
+                        graph = self.entries[key] = _Graph(image)
+                        GRAPH_STATS["captures"] += 1
+                    else:
+                        GRAPH_STATS["replays"] += 1
+                    with span("texcomp.pvrtc.hq.replay"):
+                        return graph.run(image)
+            self.entries[key] = None
+            while len(self.entries) > self.cap:
+                old = self.entries.pop(next(iter(self.entries)))
+                if old is not None:
+                    old.graph.reset()
+            GRAPH_STATS["eager"] += 1
+        return _encode_pvrtc_4bpp_hq_eager(image)
+
+
+_GRAPHS = _GraphCache(_GRAPH_CAP)
+
+
 def encode_pvrtc_4bpp_hq(image: torch.Tensor) -> torch.Tensor:
     """HQ PVRTC 4BPP encode, never worse than ``pvrtc4.encode_pvrtc_4bpp``
-    by decoded squared error (HQ on a tie)."""
+    by decoded squared error (HQ on a tie). A CPU tensor runs the ops one
+    by one; on a card the encode of each (H, W, device) is captured as a
+    CUDA graph at its second call and replayed after it: the same kernels,
+    so the same bytes, with no host dispatch between them."""
     with span("texcomp.pvrtc.hq.encode"):
-        with span("texcomp.pvrtc.hq.reference"):
-            ref = pvrtc4.encode_pvrtc_4bpp(image)
-        return _best_of(image, _encode_hq4(image), ref,
-                        pvrtc4.decode_pvrtc_4bpp)
+        if image.device.type != "cuda":
+            with _GRAPHS.lock:
+                GRAPH_STATS["eager"] += 1
+            return _encode_pvrtc_4bpp_hq_eager(image)
+        return _GRAPHS.encode(image)
