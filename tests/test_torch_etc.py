@@ -149,21 +149,6 @@ def test_create_solid_block_bytes(color):
                                   jetc.create_solid_block_bytes(*color))
 
 
-@pytest.mark.parametrize("strategy", [2, 3])
-@pytest.mark.parametrize("kind", ["column", "row"])
-def test_edge_pad_functors(rng, kind, strategy):
-    data = rng.integers(0, 256, (37, 8), dtype=np.uint8)
-    name = f"etc_{kind}_pad_blocks"
-    np.testing.assert_array_equal(getattr(tetc, name)(data, strategy),
-                                  getattr(jetc, name)(data, strategy))
-
-
-def test_corner_pad_functor(rng):
-    data = rng.integers(0, 256, (37, 8), dtype=np.uint8)
-    np.testing.assert_array_equal(tetc.etc_corner_pad_blocks(data),
-                                  jetc.etc_corner_pad_blocks(data))
-
-
 # --- image ops (plain twins) against the Pallas kernels, interpret mode ----
 
 

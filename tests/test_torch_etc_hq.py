@@ -2,9 +2,11 @@
 
 The same seeded numpy blocks go through ``texcomp.codecs.etc`` on the CPU
 (its XLA route, ``_encode_etc1_hq_blocks_xla``, under jit) and through
-``texcomp_torch.codecs.etc`` on CPU tensors (the plain twin of the HQ
-search kernel). The twin is also held to texcomp's Pallas kernel
-``etc1_hq_search`` in interpret mode on the same packed candidates. Then
+``texcomp_torch.ops.etc_cuda.etc1_hq_encode_blocks`` on CPU tensors (the
+one HQ driver, whose search there is the plain twin of the HQ search
+kernel, ``texcomp_torch.codecs.etc``). The twin is also held to texcomp's
+Pallas kernel ``etc1_hq_search`` in interpret mode on the same packed
+candidates. Then
 ``EtcCompressor(quality="high")`` where the API tests do not reach: the
 padded compress and the pad, which keeps the strategy's reference encoder.
 Tolerance 0: bytes and words equal.
@@ -162,19 +164,14 @@ def test_hq_search_twin_matches_pallas_kernel(flip):
 
 
 def test_encode_etc1_hq_blocks_matches_texcomp(rgb):
-    """The whole HQ encode through the search twin equals texcomp's XLA
-    route (twin of test_pallas.py's etc1_hq_search parity test)."""
+    """The whole HQ encode on a CPU tensor, through the search twin and no
+    launch, equals texcomp's XLA route (twin of test_pallas.py's
+    etc1_hq_search parity test)."""
     want = np.asarray(jetc.encode_etc1_hq_blocks(jnp.asarray(rgb)))
-    np.testing.assert_array_equal(tetc.encode_etc1_hq_blocks(_t(rgb)).numpy(),
-                                  want)
-    np.testing.assert_array_equal(
-        etc_cuda.etc1_hq_encode_blocks(_t(rgb)).numpy(), want)
-
-
-def test_hq_chunked_matches_single_chunk(rgb, monkeypatch):
-    whole = tetc.encode_etc1_hq_blocks(_t(rgb))
-    monkeypatch.setattr(tetc, "ENCODE_CHUNK", 37)
-    assert torch.equal(tetc.encode_etc1_hq_blocks(_t(rgb)), whole)
+    _launch.reset_launches()
+    got = etc_cuda.etc1_hq_encode_blocks(_t(rgb))
+    assert sum(_launch.LAUNCHES.values()) == 0
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_image_entry_matches_texcomp_blocks():
@@ -196,7 +193,7 @@ def test_etc_hq_never_worse_and_better():
     rgb[100:120] = (np.arange(16)[None, :, None] * 3
                     + rng.integers(0, 64, (20, 1, 3))).astype(np.int32)
     ref = tetc.encode_etc1_blocks(_t(rgb), tetc.SMALLER_ERROR)
-    hq = tetc.encode_etc1_hq_blocks(_t(rgb))
+    hq = etc_cuda.etc1_hq_encode_blocks(_t(rgb))
 
     def err(data):
         dec = tetc.decode_etc1_blocks(data).numpy().astype(np.int64)
@@ -207,7 +204,8 @@ def test_etc_hq_never_worse_and_better():
 
 
 def test_empty_batch():
-    assert tetc.encode_etc1_hq_blocks(torch.zeros((0, 16, 3))).shape == (0, 8)
+    got = etc_cuda.etc1_hq_encode_blocks(torch.zeros((0, 16, 3)))
+    assert got.shape == (0, 8) and got.dtype == torch.uint8
 
 
 # ---------------------------------------------------------------------------
@@ -607,12 +605,12 @@ def test_card_route_fits_candidates_in_the_kernel(rgb, monkeypatch):
     """On a CUDA tensor the HQ encode packs the pixels once and launches
     the fit entry once per flip, over every block, with no candidate
     tensor; hq_candidate_words never runs; LAUNCHES counts the launches;
-    the bytes are the plain route's."""
+    the bytes are the flip choice over the twin's results."""
     blocks = _t(rgb)
     pixels = etc_cuda.pack_pixels(blocks)
     results = {f: torch.stack(etc_cuda.etc1_hq_search_plain(pixels, None, f))
                for f in (False, True)}
-    want = etc_cuda.etc1_hq_encode_blocks(blocks)
+    want = tetc.hq_pick_flip(results[False], results[True])
     card = _FakeCard(results)
     monkeypatch.setattr(etc_cuda, "_pick", lambda t, plain, cuda: cuda)
     monkeypatch.setattr(etc_cuda, "_check", lambda *a, **k: None)
@@ -634,24 +632,27 @@ def test_card_route_fits_candidates_in_the_kernel(rgb, monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def test_cpu_route_keeps_the_plain_twin(rgb, monkeypatch):
-    """A CPU tensor takes the plain route: PyTorch candidates for each
-    flip, no launch counted, texcomp_torch.codecs.etc's bytes."""
-    made = []
-    words = tetc.hq_candidate_words
+def test_search_is_the_only_device_seam(rgb, monkeypatch):
+    """The HQ encode hands each flip, in turn, to etc1_hq_search over every
+    block's packed pixels with no candidates, and picks the flip from what
+    it returns: the search is all that differs by device."""
+    pixels = etc_cuda.pack_pixels(_t(rgb))
+    idx = torch.arange(N, dtype=torch.int32)
+    results = {False: (idx, idx + 7, torch.full((N,), 6, dtype=torch.int32)),
+               True: (idx + 1000, idx + 9, 4 + 3 * (idx % 2))}
+    calls = []
 
-    def counted(chunk, flip):
-        made.append((chunk.shape[0], flip))
-        return words(chunk, flip)
+    def search(px, cands, flip):
+        calls.append((px, cands, flip))
+        return results[flip]
 
-    monkeypatch.setattr(tetc, "hq_candidate_words", counted)
-    _launch.reset_launches()
+    monkeypatch.setattr(etc_cuda, "etc1_hq_search", search)
     got = etc_cuda.etc1_hq_encode_blocks(_t(rgb))
-    assert made == [(N, False), (N, True)]
-    assert sum(_launch.LAUNCHES.values()) == 0
-    monkeypatch.setattr(tetc, "hq_candidate_words", words)
-    np.testing.assert_array_equal(got.numpy(),
-                                  tetc.encode_etc1_hq_blocks(_t(rgb)).numpy())
+    assert [(c, f) for _, c, f in calls] == [(None, False), (None, True)]
+    assert all(torch.equal(px, pixels) for px, _, _ in calls)
+    want = tetc.hq_pick_flip(results[False], results[True])
+    assert torch.equal(got, want)
+    assert not torch.equal(want, tetc.words_to_bytes(*results[False][:2]))
 
 
 @pytest.mark.parametrize("flip", [False, True])

@@ -10,10 +10,12 @@ from one to the other.
 The HQ search (``quality="high"``) takes (N, 16) int32 packed pixels
 (r | g << 8 | b << 16) and (K, 2, N) int32 packed candidate words
 (``codecs.etc.pack_q_word``), or None for the 40 candidates of
-``codecs.etc.hq_candidate_words``, which the kernel then fits itself; one
-flip per call, one launch, returning the (hi, lo, err) of each block's
-winner. :func:`etc1_hq_encode_blocks` runs the whole HQ encode around it:
-on the card two such launches with no candidates, on the CPU the twin.
+``codecs.etc.hq_candidate_words``, which the kernel then fits itself and
+the twin makes :data:`codecs.etc.ENCODE_CHUNK` blocks at a time; one flip
+per call, one launch, returning the (hi, lo, err) of each block's winner.
+:func:`etc1_hq_encode_blocks` is the one HQ encode on every device: two
+such searches with no candidates and the flip choice, the search the only
+step that differs by device.
 
 Encode takes an (h, w, 3 | 4) uint8 image (a fourth channel is ignored)
 and a block grid at least that large; pixels beyond the image replicate
@@ -169,40 +171,28 @@ def etc1_hq_search_cuda(pixels: torch.Tensor, cands: torch.Tensor | None,
 # ---------------------------------------------------------------------------
 
 
-def etc1_hq_search(pixels: torch.Tensor, cands: torch.Tensor, flip: bool):
+def etc1_hq_search(pixels: torch.Tensor, cands: torch.Tensor | None,
+                   flip: bool):
     """One flip of the HQ search on the pixels' device."""
     fn = _pick(pixels, etc1_hq_search_plain, etc1_hq_search_cuda)
     return fn(pixels, cands, flip)
 
 
-def _hq_encode_blocks_plain(rgb: torch.Tensor) -> torch.Tensor:
-    """``codecs.etc.encode_etc1_hq_blocks``, each flip's search by
-    :func:`etc1_hq_search`."""
-    return etc.encode_etc1_hq_blocks(
-        rgb, search=lambda chunk, cands, flip: etc1_hq_search(
-            pack_pixels(chunk), cands, flip))
-
-
-def _hq_encode_blocks_fused(rgb: torch.Tensor) -> torch.Tensor:
-    """The card's HQ encode: the pixels packed once, then per flip one
-    launch over every block that fits the candidates and searches them,
-    and the flip choice."""
+def etc1_hq_encode_blocks(rgb: torch.Tensor) -> torch.Tensor:
+    """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks on the blocks'
+    device, never worse than the reference's SMALLER_ERROR (its truncated
+    bases are the first candidate): the pixels packed once, then per flip
+    one :func:`etc1_hq_search` over every block with no candidates (on the
+    card one launch that fits them and searches them), and the flip
+    choice."""
     if rgb.shape[0] == 0:
         return torch.empty((0, 8), dtype=torch.uint8, device=rgb.device)
     pixels = pack_pixels(rgb)
     flips = []
     for flip in (False, True):
         with span("texcomp.etc1.hq.search"):
-            flips.append(etc1_hq_search_cuda(pixels, None, flip))
+            flips.append(etc1_hq_search(pixels, None, flip))
     return etc.hq_pick_flip(*flips)
-
-
-def etc1_hq_encode_blocks(rgb: torch.Tensor) -> torch.Tensor:
-    """(N, 16, 3) int blocks -> (N, 8) uint8 HQ ETC1 blocks on the blocks'
-    device: on the card two launches, one a flip, that fit the candidates
-    and search them; on the CPU the plain twin, whose candidates are
-    PyTorch."""
-    return _pick(rgb, _hq_encode_blocks_plain, _hq_encode_blocks_fused)(rgb)
 
 
 def etc1_hq_encode_padded_image(image: torch.Tensor, grid_height: int,
