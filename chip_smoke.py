@@ -14,8 +14,9 @@ line is printed:
                 (one nvcc per source file, all at once), and the host
                 runtime texcomp_torch/native/texcomp_host.cc, built with
                 g++ (the compiler and the library's hashed name).
-  3. kernels    each of the fifteen kernels and the two strip variants
-                against its plain PyTorch twin
+  3. kernels    each of the fifteen kernels, the two strip variants and
+                the three HQ PVRTC fit kernels against its plain PyTorch
+                twin
                 on the card at 4096x4096 (1,048,576 4x4 blocks, 524,288
                 PVRTC 8x4 blocks; the two HQ kernels at 1024x1024, the size
                 of bench.py's HQ cells), bytes equal:
@@ -70,7 +71,12 @@ line is printed:
                 cands None) on the image's, the special, the fit's tie
                 blocks (etc_hq_tie_blocks) and the 65,541 blocks, both
                 flips, held to its twin and to the search kernel given
-                hq_candidate_words. First the
+                hq_candidate_words; the HQ PVRTC fit's normal operator
+                (both forms), dot and blend-weight choice on what the
+                encodes give them at 1024x1024 (4x4 and 4x8 blocks, t of
+                each value), on random texels, images and weights at sides
+                8 to 256, and dots of 1 to 2^20 values, float bits equal
+                (pvrtc_hq_fit_cases). First the
                 rates of csrc/etc.cu's micro-kernels (the packed kernels'
                 operation bound) and the SASS of the search's inner loop;
                 then each kernel's CUDA-event median time against its
@@ -221,6 +227,7 @@ from texcomp_torch.ops import (
     dxt_hq_cuda,
     etc_cuda,
     pvrtc_cuda,
+    pvrtc_hq_cuda,
 )
 from texcomp_torch.ops.mipmap import num_chain_levels
 from texcomp_torch.utils import load_archive
@@ -233,6 +240,9 @@ DXT_SRC = "texcomp_torch/csrc/dxt.cu"
 ETC_SRC = "texcomp_torch/csrc/etc.cu"
 PVRTC_SRC = "texcomp_torch/csrc/pvrtc.cu"
 DXT_HQ_SRC = "texcomp_torch/csrc/dxt_hq.cu"
+PVRTC_HQ_SRC = "texcomp_torch/csrc/pvrtc_hq.cu"
+#: What the HQ PVRTC fit's kernels replace: texcomp's HQ PVRTC is plain XLA.
+NO_PALLAS = "replaces no Pallas site (texcomp/codecs/pvrtc_hq.py is XLA)"
 #: The quality="high" paths run at bench.py's HQ size (bench_dxt1_hq_encode,
 #: bench_etc1_hq_encode).
 HQ_SIZE = 1024
@@ -295,6 +305,16 @@ KERNELS = {
     "etc1_hq_fit_search": ("texcomp/ops/etc_pallas.py:672", ETC_SRC,  # _etc1_hq_kernel
                            etc_cuda.etc1_hq_search_plain,
                            etc_cuda.etc1_hq_search_cuda),
+    # The HQ PVRTC A/B fit's full-resolution steps (ops/pvrtc_hq_cuda.py).
+    "pvrtc_hq_normal": (NO_PALLAS, PVRTC_HQ_SRC,
+                        pvrtc_hq_cuda.pvrtc_hq_normal_plain,
+                        pvrtc_hq_cuda.pvrtc_hq_normal_cuda),
+    "pvrtc_hq_dot": (NO_PALLAS, PVRTC_HQ_SRC,
+                     pvrtc_hq_cuda.pvrtc_hq_dot_plain,
+                     pvrtc_hq_cuda.pvrtc_hq_dot_cuda),
+    "pvrtc_hq_choose": (NO_PALLAS, PVRTC_HQ_SRC,
+                        pvrtc_hq_cuda.pvrtc_hq_choose_plain,
+                        pvrtc_hq_cuda.pvrtc_hq_choose_cuda),
 }
 
 # ---------------------------------------------------------------------------
@@ -428,6 +448,34 @@ RATE_KINDS = {0: ("__dp4a", 128), 1: ("multiply-add", 128),
 RATES: dict = {}
 
 
+def pvrtc_hq_fit_ops(name: str, args: tuple) -> int:
+    """Float operations of one call of an HQ PVRTC fit kernel, as its twin
+    computes them (each pixel and texel once; the normal operator's wrap
+    halo recomputes some 41% more at 4x4). Per channel of an (h, w) image over
+    (nby, nbx) texels, an upscale is its x pass (3 an (nby, w) point), y
+    pass and division (4 a pixel) per leaf, and its transpose the same
+    with the group adds. The normal operator: the forward upscale, the
+    residual (3) and the weighted g (4) a pixel, the transpose, the ridge
+    (2 a texel); the image form skips the forward and the residual; 1 - t
+    once a pixel. The dot: a multiply and an add a value. The choice: the
+    forward upscale of 4 channels, d and e (8), s and q (14) and the chain
+    (12) a pixel."""
+    if name == "pvrtc_hq_dot":
+        return 2 * args[0].numel()
+    if name == "pvrtc_hq_choose":
+        img, ab = args
+        h, w = img.shape[:2]
+        return 4 * 2 * (3 * ab.shape[1] * w + 4 * h * w) + 34 * h * w
+    x, t, img = args
+    h, w = t.shape
+    nby = x.shape[1]
+    upscale = 2 * (3 * nby * w + 4 * h * w)
+    per_channel = upscale + 4 * h * w + 2 * x[0, ..., 0].numel()
+    if img is None:
+        per_channel += upscale + 3 * h * w
+    return 4 * per_channel + h * w
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -495,6 +543,8 @@ def kernel_work(name: str, args: tuple, out):
                       + etc.HQ_PROBES * _ETC_HQ_PROBE_OPS)
         if args[1] is None:
             ops += n_in * _ETC_HQ_FIT_OPS
+    elif name.startswith("pvrtc_hq"):
+        ops = pvrtc_hq_fit_ops(name, args)
     elif name in ("pvrtc_morph", "pvrtc_morph_batched"):
         ops = out.shape[0] * _PVRTC_MORPH_OPS
     elif name in ("pvrtc_upscale_modulate", "pvrtc_upscale_modulate_halo"):
@@ -1295,6 +1345,13 @@ OCCUPANCY = {
     "pvrtc_modes_pack": ("texcomp_pvrtc_info", ((3,), "")),
     "pvrtc_upscale_modulate_halo": ("texcomp_pvrtc_info", ((4,), "")),
     "pvrtc_modes_pack_strip": ("texcomp_pvrtc_info", ((5,), "")),
+    # texcomp_pvrtc_hq_info's kernels: 0-3 the normal operator at 4x4 (J p,
+    # image) and 4x8 (J p, image); 4-5 the choice at 4x4, 4x8; 6-7 a dot
+    # pass (products, partials); 8-9 the dot's last pass at 64 values a
+    # thread (products, partials), whose CTAs are of 512 threads.
+    "pvrtc_hq_normal": ("texcomp_pvrtc_hq_info", ((0, 1, 2, 3), "kernel")),
+    "pvrtc_hq_choose": ("texcomp_pvrtc_hq_info", ((4, 5), "kernel")),
+    "pvrtc_hq_dot": ("texcomp_pvrtc_hq_info", ((6, 7, 8, 9), "kernel")),
 }
 
 
@@ -1360,7 +1417,10 @@ SASS = {"dxt1_encode": "encode_kernelILb0E", "dxt5_encode": "encode_kernelILb1E"
         "pvrtc_upscale_modulate_halo": "upscale_modulate_halo_kernel",
         "pvrtc_modes_pack_strip": "modes_pack_strip_kernel",
         "etc1_hq_search": "hq_search_kernelILb0ELb0E",
-        "etc1_hq_fit_search": "hq_search_kernelILb0ELb1E"}
+        "etc1_hq_fit_search": "hq_search_kernelILb0ELb1E",
+        "pvrtc_hq_normal": "normal_kernelILi4ELi4ELb0E",
+        "pvrtc_hq_choose": "choose_kernelILi4ELi4E",
+        "pvrtc_hq_dot": "dot_pass_kernelILb1E"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1512,7 +1572,53 @@ def kernel_cases(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
         **pvrtc_kernel_cases(pv),
         **pvrtc_strip_cases(atlas, pv),
         **hq_kernel_cases(rgb_hq),
+        **pvrtc_hq_fit_cases(pv["tiles"][:HQ_SIZE, :HQ_SIZE]),
     }
+
+
+def pvrtc_hq_fit_cases(rgba_hq: torch.Tensor) -> dict:
+    """The HQ PVRTC fit kernels' cases. First, timed, what the 4bpp encode
+    of the 1024^2 RGBA image ``rgba_hq`` gives them: A/B from its raw block
+    extremes, the blend weights chosen against them, the normal operator
+    of A/B (the CG's most frequent call), the dot of A/B with it. Then the
+    same at 4x8 blocks (2bpp), both forms of the normal operator, t of each
+    single value of ``_T``, random A/B, images and weights at sides 8, 16,
+    64 and 256, and dots of 1, 7, 4,097 and 2^20 random values."""
+    g = torch.Generator(device="cuda").manual_seed(43)
+    img_f = rgba_hq.to(torch.float32)
+    normal, dot, choose = [], [], []
+    for bh, bw in ((4, 4), (4, 8)):
+        lo, hi = pvrtc._morph_extremes(rgba_hq.to(torch.int32), bh, bw)
+        ab = torch.stack([lo, hi]).to(torch.float32)
+        t = pvrtc_hq_cuda.pvrtc_hq_choose_plain(img_f, ab)
+        shape = f"{HQ_SIZE}^2 {bh}x{bw}"
+        normal += [(f"{shape} J p", (ab, t, None)),
+                   (f"{shape} image", (ab, t, img_f))]
+        hp = pvrtc_hq_cuda.pvrtc_hq_normal_plain(ab, t)
+        dot.append((shape, (ab, hp)))
+        choose.append((shape, (img_f, ab)))
+        for tv in pvrtc_hq._T:
+            normal.append((f"{shape} t = {tv}",
+                           (ab, torch.full_like(t, tv), None)))
+        for side in (8, 16, 64, 256):
+            x = torch.rand((2, side // bh, side // bw, 4), generator=g,
+                           device="cuda") * 340 - 40
+            im = torch.randint(0, 256, (side, side, 4), generator=g,
+                               device="cuda").to(torch.float32)
+            pick = torch.randint(0, 4, (side, side), generator=g,
+                                 device="cuda")
+            tr = torch.tensor(pvrtc_hq._T, device="cuda")[pick]
+            label = f"random {side}^2 {bh}x{bw}"
+            normal += [(f"{label} J p", (x, tr, None)),
+                       (f"{label} image", (x, tr, im))]
+            choose.append((label, (im, x)))
+    for n in (1, 7, 4097, 1 << 20):
+        v = torch.randn((2, 2, n), generator=g, device="cuda")
+        mag = torch.rand((2, 2, n), generator=g, device="cuda") * 8 - 4
+        v = v * 10.0 ** mag
+        dot.append((f"random {n} a leaf", (v[0], v[1])))
+    return {"pvrtc_hq_normal": normal, "pvrtc_hq_dot": dot,
+            "pvrtc_hq_choose": choose}
 
 
 def pvrtc_case_inputs() -> dict:
@@ -1829,7 +1935,7 @@ def phase_kernels(rgb: torch.Tensor, rgba: torch.Tensor, pv: dict,
             if per:
                 print(f"[kernels] {name} on the fleets: {'; '.join(per)}",
                       flush=True)
-        if name.startswith(("dxt_hq", "etc1_hq")):
+        if name.startswith(("dxt_hq", "etc1_hq", "pvrtc_hq")):
             # The other inputs' times beside the timed case's, and the
             # kernel's registers and occupancy.
             per = []
@@ -2149,8 +2255,12 @@ def main_pvrtc(pv: dict, launches: Launches, gpu: str) -> np.ndarray:
 @contextlib.contextmanager
 def plain_kernels():
     """Every kernel wrapper replaced by its plain twin, so that a path runs
-    plain PyTorch on the card: the reference the HQ paths are held to."""
-    saved = []
+    plain PyTorch on the card: the reference the HQ paths are held to. The
+    4bpp HQ encode gets an empty graph cache meanwhile, so that it runs its
+    body on the twins and does not replay a graph captured with the
+    kernels."""
+    saved = [(pvrtc_hq, "_GRAPHS", pvrtc_hq._GRAPHS)]
+    pvrtc_hq._GRAPHS = pvrtc_hq._GraphCache(pvrtc_hq._GRAPH_CAP)
     for _, _, plain, kernel in KERNELS.values():
         module = sys.modules[kernel.__module__]
         saved.append((module, kernel.__name__, getattr(module, kernel.__name__)))
@@ -2234,7 +2344,8 @@ def main_hq(images: dict, launches: Launches, gpu: str) -> dict:
          ("dxt1_decode", "etc1_hq_fit_search")),
         ('PvrtcCompressor("high") compress',
          compress(PvrtcCompressor("high", device="cuda"), Format.RGBA),
-         ("pvrtc_morph", "pvrtc_upscale_modulate", "pvrtc_modes_pack")),
+         ("pvrtc_morph", "pvrtc_upscale_modulate", "pvrtc_modes_pack",
+          "pvrtc_hq_normal", "pvrtc_hq_dot", "pvrtc_hq_choose")),
         ('Pvrtc4bppCompressor("high") compress',
          compress(Pvrtc4bppCompressor("high", device="cuda"), Format.RGBA),
          ()),

@@ -282,8 +282,7 @@ def test_solve_ab(bits):
     ja, jb = jhq._solve_ab(img_f, t, ab0, up)
     got = thq._solve_ab(
         torch.from_numpy(img).to(torch.float32), torch.from_numpy(np.array(t)),
-        torch.stack([torch.from_numpy(np.array(v)) for v in ab0]),
-        thq._make_upscale_f(side, side, bh, bw), thq._make_upscale_t(bh, bw))
+        torch.stack([torch.from_numpy(np.array(v)) for v in ab0]))
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ja), rtol=1e-5,
                                atol=1e-3)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(jb), rtol=1e-5,

@@ -170,11 +170,20 @@ def test_counters_keys_and_eviction(card):
 
 @pytest.mark.card
 def test_no_kernel_of_the_port_launches(card):
-    """The 4bpp HQ path runs PyTorch's kernels only, eager, captured or
-    replayed."""
+    """Of the port's kernels the 4bpp HQ path launches the fit's alone: on
+    the eager call, a choice an alternation, 2 + CG steps normal operators
+    and 1 + 2 x CG steps dots a refit; as many again at capture; and none
+    from the host on a replay, which runs them from the graph."""
+    fit = {"pvrtc_hq_choose": pvrtc_hq._OUTER_ITERS,
+           "pvrtc_hq_normal": pvrtc_hq._OUTER_ITERS * (2 + pvrtc_hq._CG_ITERS),
+           "pvrtc_hq_dot": pvrtc_hq._OUTER_ITERS * (1 + 2 * pvrtc_hq._CG_ITERS)}
     _launch.reset_launches()
+    counts = []
     for seed in range(4):
         pvrtc_hq.encode_pvrtc_4bpp_hq(_image(64, seed, False).to(card))
+        counts.append({k: n for k, n in _launch.LAUNCHES.items() if n})
     torch.cuda.synchronize()
     assert pvrtc_hq._GRAPHS.entries[(64, 64, 0)] is not None
-    assert set(_launch.LAUNCHES.values()) == {0}
+    assert counts[0] == fit
+    assert counts[1] == {k: 2 * n for k, n in fit.items()}
+    assert counts[2] == counts[3] == counts[1]

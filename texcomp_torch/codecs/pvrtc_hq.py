@@ -22,11 +22,13 @@ The bytes depend on float32 rounding, so every float step has one order
 on every device:
 
   * each product and each add is its own eager op (no fused multiply-add,
-    no ``torch.add(..., alpha=)``, no autograd, no compile);
+    no ``torch.add(..., alpha=)``, no autograd, no compile), and in the
+    fit's kernels its own correctly rounded instruction, in the same order;
   * the transpose of the upscale is written by hand, its group adds
     sequential;
   * every float sum over the image is :func:`_ordered_sum`, a halving tree
-    of elementwise adds, and the 4-channel sums add c0 + c1 + c2 + c3;
+    of elementwise adds (the dot kernel's passes keep its tree), and the
+    4-channel sums add c0 + c1 + c2 + c3;
   * every scalar of the CG stays a 0-d tensor on the image's device, so
     nothing waits on the device and a CPU tensor and a CUDA tensor give
     the same bits.
@@ -37,13 +39,20 @@ order of its large float sums on some images (at a side of 256 already);
 there the port's bytes are texcomp's summed in the port's order, and
 close to texcomp's decoded error.
 
-The 2bpp reference arm is ``ops.pvrtc_cuda.pvrtc_encode_image``: the
-three PVRTC kernels on a CUDA tensor, their plain twins on a CPU one. The
-4bpp path runs no kernel of the port, as in texcomp: some 3,300 small
-PyTorch kernels at 1024², which the host would dispatch one by one. On a
-card it is captured as a CUDA graph per image size and replayed. No step
-of it waits on the device and its shapes depend only on the image size,
-so a replay on new pixels runs exactly the captured kernels.
+The fit's three full-resolution steps, the CG's normal operator (and its
+right-hand side), its dot products and the hard blend weight, are
+``ops.pvrtc_hq_cuda``'s: kernels on a CUDA tensor that keep the upscaled
+A/B and the weighted residual on chip, the plain twins on a CPU one, with
+the same bits. The CG's axpys and scalar divisions stay PyTorch ops on the
+low-res tensors. The 2bpp reference arm is
+``ops.pvrtc_cuda.pvrtc_encode_image``: the three PVRTC kernels on a CUDA
+tensor, their plain twins on a CPU one. The 4bpp reference arm, the
+assignment and the best-of are PyTorch ops, as in texcomp: with the fit,
+some 1,200 small kernels a request, which the host would dispatch one by
+one. On a card the 4bpp encode is captured as a CUDA graph per image size
+and replayed. No step of it waits on the device and its shapes depend only
+on the image size, so a replay on new pixels runs exactly the captured
+kernels.
 """
 
 from __future__ import annotations
@@ -57,6 +66,19 @@ from texcomp_torch.codecs import pvrtc as pv
 from texcomp_torch.codecs import pvrtc4
 from texcomp_torch.codecs.etc import _argmin_first
 from texcomp_torch.ops import pvrtc_cuda
+from texcomp_torch.ops.pvrtc_hq_cuda import (
+    _T,
+    _tree_axpy,
+    pvrtc_hq_choose,
+    pvrtc_hq_dot,
+    pvrtc_hq_normal,
+)
+# The fit's plain arithmetic lives beside its kernels; its names stay here.
+from texcomp_torch.ops.pvrtc_hq_cuda import (  # noqa: F401
+    _make_upscale_f,
+    _make_upscale_t,
+    _ordered_sum,
+)
 from texcomp_torch.utils.profiling import span
 
 # Iteration counts as texcomp tuned them (4 outer alternations, 2
@@ -64,15 +86,9 @@ from texcomp_torch.utils.profiling import span
 _OUTER_ITERS = 4
 _REFINE_CYCLES = 2
 _CG_ITERS = 4
-# Ridge anchoring texels whose bilinear support is all-mod-0/3, and the
-# floor of the CG denominators, as the float32 values texcomp computes
+# The floor of the CG denominators, as the float32 value texcomp computes
 # with.
-_RIDGE = 0.009999999776482582  # float32(1e-2)
 _TINY = 9.999999960041972e-13  # float32(1e-12)
-
-# Blend weight of B for each modulation value (ApplyModulation,
-# pvrtc_compressor.cc:120-144).
-_T = (0.0, 3.0 / 8.0, 5.0 / 8.0, 1.0)
 
 
 def _t_of(mod: torch.Tensor) -> torch.Tensor:
@@ -94,133 +110,34 @@ def _shrunk_seed(lo: torch.Tensor, hi: torch.Tensor,
     return torch.stack([mean - s * half, mean + s * half])
 
 
-def _make_upscale_f(h: int, w: int, block_h: int, block_w: int):
-    """Float bilinear wrap upscale of (..., nby, nbx, C) low-res images to
-    (..., h, w, C): the integer upscale's two separable passes
-    (``pvrtc._upscale_axis``), then a true division."""
-    def upscale_f(low: torch.Tensor) -> torch.Tensor:
-        tmp = pv._upscale_axis(low, w, axis=-2, block=block_w)
-        full = pv._upscale_axis(tmp, h, axis=-3, block=block_h)
-        return full / float(block_w * block_h)
-    return upscale_f
-
-
-def _upscale_axis_t(g: torch.Tensor, axis: int, block: int) -> torch.Tensor:
-    """Transpose of one ``pvrtc._upscale_axis`` pass along ``axis`` (< 0).
-    The pass is (block - fw) roll(repeat(x), block/2) + fw roll(repeat(x),
-    block/2 - block): weight each term, roll it back, add the two, then add
-    each group of ``block`` entries, in order."""
-    size = g.shape[axis]
-    shape = [1] * g.dim()
-    shape[axis] = size
-    fw = ((torch.arange(size, device=g.device) + block // 2)
-          & (block - 1)).reshape(shape).to(g.dtype)
-    half = block // 2
-    up = (g * (block - fw)).roll(-half, dims=axis) + (g * fw).roll(
-        block - half, dims=axis)
-    groups = up.unflatten(axis, (size // block, block))
-    out = groups.select(axis, 0)
-    for k in range(1, block):
-        out = out + groups.select(axis, k)
-    return out
-
-
-def _make_upscale_t(block_h: int, block_w: int):
-    """Transpose of :func:`_make_upscale_f`'s map: (..., h, w, C) ->
-    (..., nby, nbx, C), its passes in reverse order."""
-    def upscale_t(full: torch.Tensor) -> torch.Tensor:
-        g = full / float(block_w * block_h)
-        tmp = _upscale_axis_t(g, -3, block_h)
-        return _upscale_axis_t(tmp, -2, block_w)
-    return upscale_t
-
-
-def _ordered_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float sum over the last dim as a halving tree of elementwise adds
-    (x = x[:n/2] + x[n/2:], zero-padded to a power of two): one order, so
-    the same bits on every device."""
-    n = x.shape[-1]
-    size = 1 << (n - 1).bit_length()
-    if size != n:
-        x = torch.nn.functional.pad(x, (0, size - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
-
-
-def _channel_sum(x: torch.Tensor) -> torch.Tensor:
-    """(..., 4) -> (...): c0 + c1 + c2 + c3, in that order."""
-    return x[..., 0] + x[..., 1] + x[..., 2] + x[..., 3]
-
-
-def _tree_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """<x, y> of two stacked (A, B) pairs: each leaf's ordered sum, then
-    A's plus B's. A 0-d tensor."""
-    leaves = _ordered_sum((x * y).flatten(1))
-    return leaves[0] + leaves[1]
-
-
-def _tree_axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """alpha * x + y as a multiply and then an add."""
-    return alpha * x + y
-
-
-def _solve_ab(img_f: torch.Tensor, t: torch.Tensor, ab0: torch.Tensor,
-              upscale_f, upscale_t) -> torch.Tensor:
+def _solve_ab(img_f: torch.Tensor, t: torch.Tensor,
+              ab0: torch.Tensor) -> torch.Tensor:
     """Least-squares refit of the stacked A/B texels for a fixed modulation
     blend t: (J^T J + ridge I) x = J^T img + ridge x0 by ``_CG_ITERS`` CG
-    steps from x0, where J (A, B) = (1 - t) up(A) + t up(B). J is its own
-    JVP (it is linear); J^T weights a residual by (1 - t, t) and applies
-    the upscale's transpose."""
-    tb = t[..., None]
-    weights = torch.stack([1.0 - tb, tb])
-
-    def fwd(ab):
-        up = upscale_f(ab)
-        return weights[0] * up[0] + weights[1] * up[1]
-
-    def fwd_t(r):
-        return upscale_t(weights * r)
-
-    def apply_h(x):
-        return _tree_axpy(_RIDGE, x, fwd_t(fwd(x)))
-
-    b = _tree_axpy(_RIDGE, ab0, fwd_t(img_f))
+    steps from x0, where J (A, B) = (1 - t) up(A) + t up(B), the block
+    shape the image's over the texels'. The normal operator, the
+    right-hand side and the dot products are ``ops.pvrtc_hq_cuda``'s."""
+    b = pvrtc_hq_normal(ab0, t, img_f)
     x = ab0
-    r = _tree_axpy(-1.0, apply_h(x), b)
+    r = _tree_axpy(-1.0, pvrtc_hq_normal(x, t), b)
     p = r
-    rs = _tree_dot(r, r)
+    rs = pvrtc_hq_dot(r, r)
     for _ in range(_CG_ITERS):
-        hp = apply_h(p)
-        alpha = rs / _tree_dot(p, hp).clamp_min(_TINY)
+        hp = pvrtc_hq_normal(p, t)
+        alpha = rs / pvrtc_hq_dot(p, hp).clamp_min(_TINY)
         x = _tree_axpy(alpha, p, x)
         r = _tree_axpy(-alpha, hp, r)
-        rs_new = _tree_dot(r, r)
+        rs_new = pvrtc_hq_dot(r, r)
         p = _tree_axpy(rs_new / rs.clamp_min(_TINY), p, r)
         rs = rs_new
     return x
 
 
-def _outer_step(img_f: torch.Tensor, ab: torch.Tensor, upscale_f,
-                upscale_t) -> torch.Tensor:
-    """One alternating-minimization step: hard per-pixel blend weight by
-    squared error against the upscaled A/B, |d - t e|^2 - |d|^2 = t^2 |e|^2
-    - 2 t (d.e) with d = img - up(A), e = up(B) - up(A), over the strict-<
-    chain of ``_T[1:]`` (t = 0 scores 0); then the CG refit."""
-    up = upscale_f(ab)
-    d = img_f - up[0]
-    e = up[1] - up[0]
-    s = _channel_sum(d * e)
-    q = _channel_sum(e * e)
-    best_t = torch.zeros_like(s)
-    best_e = torch.zeros_like(s)
-    for tv in _T[1:]:
-        cand = (tv * tv) * q - (2.0 * tv) * s
-        better = cand < best_e
-        best_t = torch.where(better, tv, best_t)
-        best_e = torch.where(better, cand, best_e)
-    return _solve_ab(img_f, best_t, ab, upscale_f, upscale_t)
+def _outer_step(img_f: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
+    """One alternating-minimization step: the hard per-pixel blend weight
+    against the upscaled A/B (``ops.pvrtc_hq_cuda.pvrtc_hq_choose``), then
+    the CG refit."""
+    return _solve_ab(img_f, pvrtc_hq_choose(img_f, ab), ab)
 
 
 def _mod_errors_int(img_i: torch.Tensor, a_up: torch.Tensor,
@@ -311,13 +228,11 @@ def _encode_hq(image: torch.Tensor) -> torch.Tensor:
     img_i = image.to(torch.int32)
     img_f = image.to(torch.float32)
 
-    upscale_f = _make_upscale_f(h, w, pv.BLOCK_H, pv.BLOCK_W)
-    upscale_t = _make_upscale_t(pv.BLOCK_H, pv.BLOCK_W)
     with span("texcomp.pvrtc.hq.fit"):
         lo, hi = pv._morph_extremes(img_i)
         ab = _shrunk_seed(lo, hi)
         for _ in range(_OUTER_ITERS):
-            ab = _outer_step(img_f, ab, upscale_f, upscale_t)
+            ab = _outer_step(img_f, ab)
 
     # Packing-aware rounds: refit A/B against the modulation the decoder
     # will reconstruct under the chosen packing modes.
@@ -326,7 +241,7 @@ def _encode_hq(image: torch.Tensor) -> torch.Tensor:
             a_q, b_q = _quantize_ab(ab, img_i)
             mod, modes = _assign(img_i, a_q, b_q, h, w)
             t = _t_of(_recon_mod(mod, modes, h, w))
-            ab = _solve_ab(img_f, t, ab, upscale_f, upscale_t)
+            ab = _solve_ab(img_f, t, ab)
 
     with span("texcomp.pvrtc.hq.assign"):
         a_q, b_q = _quantize_ab(ab, img_i)
@@ -374,14 +289,12 @@ def _encode_hq4(image: torch.Tensor) -> torch.Tensor:
     img_i = image.to(torch.int32)
     img_f = image.to(torch.float32)
 
-    upscale_f = _make_upscale_f(h, w, pvrtc4.BLOCK, pvrtc4.BLOCK)
-    upscale_t = _make_upscale_t(pvrtc4.BLOCK, pvrtc4.BLOCK)
     with span("texcomp.pvrtc.hq.fit"):
         # 4bpp keeps the raw-extremes seed, as texcomp does.
         lo, hi = pv._morph_extremes(img_i, pvrtc4.BLOCK, pvrtc4.BLOCK)
         ab = torch.stack([lo, hi]).to(torch.float32)
         for _ in range(_OUTER_ITERS):
-            ab = _outer_step(img_f, ab, upscale_f, upscale_t)
+            ab = _outer_step(img_f, ab)
 
     with span("texcomp.pvrtc.hq.assign"):
         a_q, b_q = _quantize_ab(ab, img_i)

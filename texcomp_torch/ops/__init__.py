@@ -6,8 +6,8 @@ next level's, on the tensor's own device: the CUDA kernels for a CUDA
 tensor, their plain PyTorch twins for a CPU tensor (``dxt_cuda`` for
 DXT1/DXT5, ``dxt_hq_cuda`` for the HQ DXT cluster fit, ``etc_cuda`` for
 ETC1 (the HQ search too) and the transcoder, ``mipmap`` for chains,
-``pvrtc_cuda`` for PVRTC 2bpp). The decode result is an (H, W, 4) image
-on every device.
+``pvrtc_cuda`` for PVRTC 2bpp, ``pvrtc_hq_cuda`` for the HQ PVRTC fit).
+The decode result is an (H, W, 4) image on every device.
 """
 
 from __future__ import annotations

@@ -63,6 +63,11 @@ SIGNATURES = {
     "texcomp_pvrtc_modes_pack_strip": [_P, _P, _P, _I, _I, _P, _P],
     "texcomp_pvrtc_modes_pack_design": [_I, _P, _P, _I, _I, _I, _P, _P],
     "texcomp_pvrtc_info": [_I, _P],
+    # csrc/pvrtc_hq.cu
+    "texcomp_pvrtc_hq_normal": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "texcomp_pvrtc_hq_dot": [_P, _P, _I, _P, _I, _P, _P],
+    "texcomp_pvrtc_hq_choose": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "texcomp_pvrtc_hq_info": [_I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

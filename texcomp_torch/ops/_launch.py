@@ -21,7 +21,8 @@ LAUNCHES = {"dxt1_encode": 0, "dxt5_encode": 0, "dxt1_decode": 0,
             "pvrtc_upscale_modulate": 0, "pvrtc_modes_pack": 0,
             "dxt_hq_cluster_topk4": 0, "etc1_hq_search": 0,
             "etc1_hq_fit_search": 0,
-            "pvrtc_upscale_modulate_halo": 0, "pvrtc_modes_pack_strip": 0}
+            "pvrtc_upscale_modulate_halo": 0, "pvrtc_modes_pack_strip": 0,
+            "pvrtc_hq_normal": 0, "pvrtc_hq_dot": 0, "pvrtc_hq_choose": 0}
 
 
 def reset_launches() -> None:
